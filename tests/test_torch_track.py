@@ -1,0 +1,136 @@
+"""Parity of one tracking step: the port's ``frame_step`` against the JAX
+package's on the same frame and the same local-map snapshot. The snapshot is
+built from one JAX ``MapState`` carried across with ``interop``.
+
+Against JAX's two tracking steps (``track_against_points`` then
+``track_local_map_step``, each its own jitted program) the summary counts
+(inliers, matches, close tracked/untracked, first-solve inliers) are exactly
+equal and the pose agrees within 1e-4 (f32 solver arithmetic in another
+order). Against JAX's fused ``frame_step`` the counts agree within 2 and the
+pose within 1e-3: inside the one larger program XLA fuses the pose solve
+differently, and JAX's fused step itself differs from its standalone steps
+on this frame by one first-solve inlier (an edge whose chi2 sits within f32
+rounding of the gate) and by 4.95e-4 in the pose (measured). The JAX keypoint
+top-k is pinned to ``lax.top_k`` (see tests/test_torch_frontend.py: its CPU
+fallback sorts ties in an implementation-defined order)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pslam_tpu.geometry import Camera as JCam
+from pslam_tpu.io.synthetic import arc_trajectory, render_sequence
+from pslam_tpu.ops.orb import OrbConfig as JOrb
+from pslam_tpu.pipeline import frame_step as jfs
+from pslam_tpu.pipeline import track_ops as jto
+from pslam_tpu.pipeline.system import SlamSystem as JSys
+from pslam_tpu.utils.config import Capacities as JCaps, SlamConfig as JCfg
+from pslam_tpu_torch import interop
+from pslam_tpu_torch.geometry import Camera as TCam
+from pslam_tpu_torch.ops.orb import OrbConfig as TOrb
+from pslam_tpu_torch.pipeline import frame_step as tfs
+from pslam_tpu_torch.utils.config import Capacities as TCaps, SlamConfig as TCfg
+
+CAM_KW = dict(fx=258.65, fy=258.25, cx=159.3, cy=127.65, bf=20.0,
+              width=320, height=240)
+CFG_KW = dict(use_lines=False, use_bow=False, use_loop_closing=False)
+COUNTS = [jfs.S_INLIERS, jfs.S_MATCHES, jfs.S_WEIGHTED, jfs.S_TRACKED_CLOSE,
+          jfs.S_UNTRACKED_CLOSE, jfs.S_LINE_MATCHES, jfs.S_LIL_ASSOC,
+          jfs.S_INLIERS_1]
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jc = JCfg(camera=JCam(**CAM_KW), orb=JOrb(n_features=500),
+              caps=JCaps(local_points=1024), **CFG_KW)
+    tc = TCfg(camera=TCam(**CAM_KW), orb=TOrb(n_features=500),
+              caps=TCaps(local_points=1024), **CFG_KW)
+    grays, depths, _ = render_sequence(jc.camera, poses=arc_trajectory(24)[:3], seed=0)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.lax, "approx_max_k", lambda x, k, **kw: jax.lax.top_k(x, k))
+        jax.clear_caches()
+        js = JSys(jc)
+        js.track_rgbd(grays[0], depths[0], 0.0)
+        js._rebuild_snapshot()
+        T0 = np.eye(4, dtype=np.float32)
+        out_j = jfs.frame_step(
+            jc, jnp.asarray(grays[1]), jnp.asarray(depths[1]), jnp.asarray(T0),
+            jnp.asarray(T0), 15.0, js._snap, js._acc,
+        )
+        out_j = jax.device_get(out_j)
+        fd_j = jfs.make_frame(jnp.asarray(grays[1]), jnp.asarray(depths[1]),
+                              jc.camera, jc.orb)
+        r1 = jto.track_against_points(jc.camera, jnp.asarray(T0), js._snap.pts,
+                                      fd_j, 15.0, 1.2, 8, check_scale=False)
+        prior = jnp.where(r1.inlier & (r1.match_point >= 0), r1.match_point, -1)
+        r2 = jto.track_local_map_step(jc.camera, r1.T_cw, js._snap.pts, fd_j,
+                                      prior, tc.tracking.local_match_radius, 1.2, 8)
+        steps_j = jax.device_get((fd_j, r1, r2))
+    jax.clear_caches()
+    m = interop.map_state_from_arrays(tc, vars(js.map))
+    snap = tfs.build_snapshot(m, tc, js._snap_pt_ids, "cpu")
+    return dict(jc=jc, tc=tc, js=js, m=m, snap=snap, out_j=out_j, T0=T0,
+                steps_j=steps_j,
+                gray=grays[1], depth=depths[1])
+
+
+def test_snapshot_carried_across_exactly(setup):
+    js, snap = setup["js"], setup["snap"]
+    # Built by the port from the carried-over map, and converted directly
+    # from JAX's PointSet: both equal JAX's snapshot, dtypes included.
+    direct = interop.point_set_from_numpy(jax.device_get(js._snap.pts))
+    for f in snap.pts._fields:
+        ref = np.asarray(getattr(js._snap.pts, f))
+        for pts in (snap.pts, direct):
+            got = getattr(pts, f).numpy()
+            assert got.dtype == ref.dtype, (f, got.dtype, ref.dtype)
+            np.testing.assert_array_equal(got, ref)
+    m = setup["m"]
+    for name in ("kf_pose", "kf_feat_mp", "mp_pos", "mp_desc", "mp_gen", "covis"):
+        np.testing.assert_array_equal(getattr(m, name), getattr(js.map, name))
+    assert m.n_kf == js.map.n_kf and m._mp_free_head == js.map._mp_free_head
+
+
+def test_track_frame_matches_jax_steps(setup):
+    """Tracking half on the JAX-built FrameData against JAX's standalone
+    steps: every count, per-point match and inlier flag agree exactly."""
+    tc = setup["tc"]
+    fd_j, r1, r2 = setup["steps_j"]
+    T0 = torch.from_numpy(setup["T0"])
+    out_t = tfs.track_frame(tc, interop.frame_from_numpy(fd_j), T0, T0, 15.0,
+                            setup["snap"], tfs.make_acc(tc, "cpu"))
+    s = out_t.summary.numpy()
+    assert s[jfs.S_INLIERS] == r2.n_inliers and s[jfs.S_MATCHES] == r2.n_matches
+    assert s[jfs.S_INLIERS_1] == r1.n_inliers
+    assert r2.n_inliers > 100  # a real tracking step, not a failure
+    np.testing.assert_allclose(out_t.T_cw.numpy(), r2.T_cw, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(out_t.match_point.numpy(), r2.match_point)
+    np.testing.assert_array_equal(out_t.inlier.numpy(), r2.inlier)
+    np.testing.assert_array_equal(out_t.acc.pt_vis.numpy(), r2.visible.astype(np.int32))
+    matched = (r2.match_point >= 0) & r2.inlier
+    np.testing.assert_array_equal(out_t.acc.pt_found.numpy(), matched.astype(np.int32))
+    # The close-feature counts equal JAX's fused step (they do not depend on
+    # the last-ulp pose).
+    np.testing.assert_array_equal(
+        s[[jfs.S_TRACKED_CLOSE, jfs.S_UNTRACKED_CLOSE]],
+        setup["out_j"].summary[[jfs.S_TRACKED_CLOSE, jfs.S_UNTRACKED_CLOSE]],
+    )
+
+
+def test_frame_step_end_to_end(setup):
+    """Whole step including the port's own make_frame, against JAX's fused
+    frame_step (bounds in the module docstring)."""
+    tc, T0 = setup["tc"], torch.from_numpy(setup["T0"])
+    out_t = tfs.frame_step(
+        tc, torch.from_numpy(setup["gray"]), torch.from_numpy(setup["depth"]),
+        T0, T0, 15.0, setup["snap"], tfs.make_acc(tc, "cpu"),
+    )
+    s_t, s_j = out_t.summary.numpy(), np.asarray(setup["out_j"].summary)
+    np.testing.assert_allclose(s_t[COUNTS], s_j[COUNTS], rtol=0, atol=2)
+    np.testing.assert_allclose(s_t[:16], s_j[:16], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(
+        out_t.vel.numpy(), np.asarray(setup["out_j"].vel), rtol=0, atol=1e-3
+    )
+    assert s_j[jfs.S_INLIERS] > 100
