@@ -18,13 +18,27 @@ non-zero exit and no result line):
    tracked frame went through both kernels.
 5. the same slice, small (320x240, 8 frames), on the card and on the CPU:
    the same tracking states and keyframes, camera centres within 2 cm.
+6. the structural-line slice: ``SlamSystem(SlamConfig(use_bow=False,
+   use_loop_closing=False), device="cuda")`` (BASELINE config 3: lines,
+   LILs, the LIL composite error in the pose solve and the joint point + LIL
+   local BA) at 640x480 with default capacities and line settings over 60
+   frames; every frame tracked, >= 3 keyframes, >= 1 local BA with LIL
+   edges, map lines, LIL landmarks with one re-observed, ATE < 5 cm, and
+   every tracked frame through both kernels.
+7. the structural-line slice, small (320x240, 8 frames, 8 px line tiles),
+   twice on the card and once on the CPU: the two card runs bit-identical
+   (poses and every map array), card vs CPU the same states and keyframes
+   with camera centres within 2 cm.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The kernels' launch counters are set to 0 just before each main path
+(phases 4 and 6) and read just after. The line before the last is a JSON
+object with one entry per kernel; the last line is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -216,6 +230,7 @@ def _phase_k2(fused_pose, dev):
 
 
 def _run_slice(cfg, device, n_frames, poses=None):
+    """Track ``n_frames`` of the synthetic arc; every frame must end OK."""
     from pslam_tpu_torch.io.synthetic import render_sequence
     from pslam_tpu_torch.pipeline.system import SlamSystem, TrackState
     from pslam_tpu_torch.utils.metrics import ate_rmse, trajectory_positions
@@ -240,6 +255,57 @@ def _run_slice(cfg, device, n_frames, poses=None):
     return slam, np.asarray(ms), np.asarray(is_kf), states, np.asarray(centres), ate
 
 
+def _drive_main_path(name, cfg, n_frames, fused_match, fused_pose):
+    """One main path on the card with the launch counters read around it."""
+    fused_match.LAUNCHES = 0
+    fused_pose.LAUNCHES = 0
+    run = _run_slice(cfg, "cuda", n_frames)
+    launches = {"fused_match": fused_match.LAUNCHES, "fused_pose": fused_pose.LAUNCHES}
+    slam, ms, is_kf, _, _, ate = run
+    tracked = n_frames - 1  # frame 0 initializes the map
+    n_kf = int(slam.map.kf_valid.sum())
+    print(f"[{name}] 640x480, {n_frames} frames on the card: all OK; keyframes "
+          f"{n_kf} (inserted {slam.stats['kf_inserted']}), local BAs "
+          f"{slam.stats['ba_runs']}, ATE {ate * 100:.3f} cm; median "
+          f"{np.median(ms[5:]):.2f} ms/frame (frames 5+), keyframe frames mean "
+          f"{ms[is_kf][1:].mean():.2f} ms, first frame {ms[0]:.1f} ms; "
+          f"launches {launches} ({launches['fused_match'] / tracked:.2f} and "
+          f"{launches['fused_pose'] / tracked:.2f} per tracked frame)")
+    if n_kf < 3 or slam.stats["ba_runs"] < 1 or not ate < 0.05:
+        raise AssertionError(f"{name}: too few keyframes or local BAs, or ATE >= 5 cm")
+    if launches["fused_match"] < 2 * tracked or launches["fused_pose"] < 98 * tracked:
+        raise AssertionError(f"{name} did not run through both kernels: {launches}")
+    return slam, launches
+
+
+def _map_arrays(slam):
+    return {k: v for k, v in vars(slam.map).items() if isinstance(v, np.ndarray)}
+
+
+def _phase_repeat(small_lines):
+    """The small structural-line slice twice on the card, once on the CPU."""
+    from pslam_tpu_torch.io.synthetic import arc_trajectory
+
+    poses = arc_trajectory(24)[:8]
+    runs = [_run_slice(small_lines, dev, 8, poses) for dev in ("cuda", "cuda", "cpu")]
+    (g1, g2, cpu) = runs
+    same_poses = np.array_equal(np.stack(g1[0].poses), np.stack(g2[0].poses))
+    m1, m2 = _map_arrays(g1[0]), _map_arrays(g2[0])
+    differ = [k for k in m1 if not np.array_equal(m1[k], m2[k])]
+    diff = float(np.linalg.norm(g1[4] - cpu[4], axis=1).max())
+    same_kf = np.array_equal(g1[2], cpu[2])
+    m = g1[0].map
+    print(f"[7 repeat] 320x240 config 3, 8 frames: card runs bit-identical "
+          f"poses {same_poses}, map arrays differing {differ}; card vs cpu same "
+          f"states {g1[3] == cpu[3]}, same keyframes {same_kf}, max centre "
+          f"difference {diff * 1000:.3f} mm; map lines {int(m.ml_valid.sum())}, "
+          f"LILs {int(m.il_valid.sum())}, LIL BA edges {g1[0].stats.get('lil_ba_edges', 0)}")
+    if not same_poses or differ:
+        raise AssertionError("two card runs of the same input differ")
+    if g1[3] != cpu[3] or not same_kf or diff > 0.02:
+        raise AssertionError("card and CPU runs of the small structural-line slice disagree")
+
+
 def main():
     _identity()
     dev = torch.device("cuda", 0)
@@ -262,23 +328,7 @@ def main():
     k2 = _phase_k2(fused_pose, dev)
 
     cfg = SlamConfig(use_lines=False, use_bow=False, use_loop_closing=False)
-    n_frames = 60
-    fused_match.LAUNCHES = 0
-    fused_pose.LAUNCHES = 0
-    slam, ms, is_kf, _, _, ate = _run_slice(cfg, "cuda", n_frames)
-    launches = {"fused_match": fused_match.LAUNCHES, "fused_pose": fused_pose.LAUNCHES}
-    tracked = n_frames - 1  # frame 0 initializes the map
-    n_kf = int(slam.map.kf_valid.sum())
-    print(f"[4 slice] 640x480, {n_frames} frames on the card: all OK; keyframes "
-          f"{n_kf} (inserted {slam.stats['kf_inserted']}), local BAs "
-          f"{slam.stats['ba_runs']}, ATE {ate * 100:.3f} cm; median "
-          f"{np.median(ms[5:]):.2f} ms/frame (frames 5+), keyframe frames mean "
-          f"{ms[is_kf][1:].mean():.2f} ms, first frame {ms[0]:.1f} ms; "
-          f"launches {launches}")
-    if n_kf < 3 or slam.stats["ba_runs"] < 1 or not ate < 0.05:
-        raise AssertionError("slice: too few keyframes or local BAs, or ATE >= 5 cm")
-    if launches["fused_match"] < 2 * tracked or launches["fused_pose"] < 98 * tracked:
-        raise AssertionError(f"slice did not run through both kernels: {launches}")
+    _, launches = _drive_main_path("4 slice", cfg, 60, fused_match, fused_pose)
 
     small_cam = Camera(fx=258.65, fy=258.25, cx=159.3, cy=127.65, bf=20.0,
                        width=320, height=240)
@@ -297,6 +347,26 @@ def main():
           f"ATE card {g_run[5] * 100:.3f} cm, cpu {c_run[5] * 100:.3f} cm")
     if g_run[3] != c_run[3] or not same_kf or diff > 0.02:
         raise AssertionError("card and CPU runs of the small slice disagree")
+
+    cfg3 = SlamConfig(use_bow=False, use_loop_closing=False)
+    slam3, launches3 = _drive_main_path("6 lines", cfg3, 60, fused_match, fused_pose)
+    m = slam3.map
+    n_ml, n_il = int(m.ml_valid.sum()), int(m.il_valid.sum())
+    n_reobs = int((m.il_n_obs[m.il_valid] >= 2).sum())
+    print(f"[6 lines] map lines {n_ml}, LIL landmarks {n_il} ({n_reobs} re-observed), "
+          f"LIL BA edges {slam3.stats.get('lil_ba_edges', 0)}, lines triangulated "
+          f"{slam3.stats.get('lines_triangulated', 0)}, fused "
+          f"{slam3.stats.get('lines_fused', 0)}, LILs culled "
+          f"{slam3.stats.get('lils_culled', 0)}")
+    if n_ml < 1 or n_il < 1 or n_reobs < 1 or slam3.stats.get("lil_ba_edges", 0) < 1:
+        raise AssertionError("structural-line slice: no map lines, no re-observed LIL "
+                             "or no local BA with LIL edges")
+
+    from pslam_tpu_torch.ops.lines import LineConfig
+
+    _phase_repeat(dataclasses.replace(small, use_lines=True, use_lils=True,
+                                      lines=LineConfig(tile=8)))
+    launches = {k: launches[k] + launches3[k] for k in launches}
 
     kernels = [
         dict(name="fused_match", route="cuda", source="pslam_tpu_torch/csrc/fused_match.cu",

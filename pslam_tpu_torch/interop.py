@@ -14,12 +14,17 @@ import numpy as np
 import torch
 
 from pslam_tpu_torch.models.map_state import MapState
-from pslam_tpu_torch.pipeline.frame_ops import FrameData
+from pslam_tpu_torch.ops.fans import LILFeatures
+from pslam_tpu_torch.pipeline.frame_ops import FrameData, FrameLineData
+from pslam_tpu_torch.pipeline.frame_step import LILSnap, LineSnap
 from pslam_tpu_torch.pipeline.track_ops import PointSet
+from pslam_tpu_torch.solver.ba_lil import LILBAEdges
+from pslam_tpu_torch.solver.lil import LILPoseObs
 from pslam_tpu_torch.solver.local_ba import BAProblem
 
 _INT_FIELDS = {"level": torch.int32, "free_slot": torch.int64,
-               "cam_idx": torch.int64, "pt_idx": torch.int64}
+               "cam_idx": torch.int64, "pt_idx": torch.int64,
+               "lil_idx": torch.int64, "line_idx": torch.int32}
 
 
 def _tensor(name, value, device):
@@ -33,6 +38,30 @@ def _tensor(name, value, device):
 
 def _convert(cls, obj, device):
     return cls(**{f: _tensor(f, getattr(obj, f), device) for f in cls._fields})
+
+
+def frame_lines_from_numpy(fl, device="cpu") -> FrameLineData:
+    """A ``FrameLineData`` (its ``lil`` a ``LILFeatures``) -> the port's
+    FrameLineData on ``device``."""
+    fields = {f: _tensor(f, getattr(fl, f), device)
+              for f in FrameLineData._fields if f != "lil"}
+    return FrameLineData(lil=_convert(LILFeatures, fl.lil, device), **fields)
+
+
+def line_snap_from_numpy(ls, device="cpu") -> LineSnap:
+    return _convert(LineSnap, ls, device)
+
+
+def lil_snap_from_numpy(qs, device="cpu") -> LILSnap:
+    return _convert(LILSnap, qs, device)
+
+
+def lil_ba_edges_from_numpy(edges, device="cpu") -> LILBAEdges:
+    return _convert(LILBAEdges, edges, device)
+
+
+def lil_pose_obs_from_numpy(obs, device="cpu") -> LILPoseObs:
+    return _convert(LILPoseObs, obs, device)
 
 
 def point_set_from_numpy(pts, device="cpu") -> PointSet:

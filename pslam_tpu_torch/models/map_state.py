@@ -1,7 +1,6 @@
 """Host-side SoA map: keyframes, map points, observations, covisibility
-(port of ``pslam_tpu/models/map_state.py``: the keyframe and map-point half,
-nearly verbatim; the line and LIL tables are allocated as in the JAX package,
-their methods are not ported yet).
+(port of ``pslam_tpu/models/map_state.py``, nearly verbatim: keyframes,
+map points, map lines and structural lines).
 
 Replaces the reference's pointer-linked Map/KeyFrame/MapPoint classes
 (src/Map.cc, src/KeyFrame.cc:31-908, src/MapPoint.cc) with flat arrays:
@@ -302,6 +301,194 @@ class MapState:
             scale ** (self.cfg.orb.levels - 1)
         )
         return ids
+
+    # ------------------------------------------------------------------
+    # Map lines / structural lines
+    # ------------------------------------------------------------------
+
+    def _alloc(self, valid, free_head_attr, count, n_obs=None, cull=None):
+        """Generic slot allocator with graceful eviction: when the pool is
+        exhausted, the live entries with the fewest observations are culled
+        (``cull`` callback) to make room."""
+        cap = valid.shape[0]
+        head = getattr(self, free_head_attr)
+        free = np.flatnonzero(~valid[:head])
+        shortfall = count - len(free) - (cap - head)
+        if shortfall > 0 and n_obs is not None and cull is not None:
+            live = np.flatnonzero(valid)
+            victims = live[
+                np.argsort(n_obs[live], kind="stable")[:shortfall]
+            ]
+            import logging
+
+            logging.getLogger(__name__).warning(
+                "%s capacity: evicting %d lowest-value entries",
+                free_head_attr, len(victims),
+            )
+            cull(victims)
+            free = np.flatnonzero(~valid[:head])
+        n_recycle = min(len(free), count)
+        ids = list(free[:n_recycle])
+        remaining = count - n_recycle
+        if remaining > 0:
+            if head + remaining > cap:
+                raise RuntimeError("landmark capacity exhausted")
+            ids.extend(range(head, head + remaining))
+            setattr(self, free_head_attr, head + remaining)
+        return np.asarray(ids, np.int32)
+
+    def create_map_lines(self, kf_idx: int, line_slots, pos_w, desc):
+        """New 6-DoF line landmarks observed by KF kf_idx at ``line_slots``
+        (MapLine creation in CreateNewKeyFrame / LocalMapping)."""
+        ids = self._alloc(self.ml_valid, "_ml_free_head", len(line_slots),
+                          n_obs=self.ml_n_obs, cull=self.cull_map_lines)
+        self.ml_gen[ids] += 1
+        self.ml_valid[ids] = True
+        self.ml_pos[ids] = pos_w
+        self.ml_desc[ids] = desc
+        self.ml_first_kf[ids] = kf_idx
+        self.ml_first_seq[ids] = self.kf_seq[kf_idx]
+        self.ml_n_obs[ids] = 1
+        self.ml_visible[ids] = 1
+        self.ml_found[ids] = 1
+        # Initial viewing normal + distance band from the creating view
+        # (MapLine ctor -> UpdateAverageDir; single line octave, so the band
+        # is the midpoint distance itself, widened by the matcher's 0.8/1.2
+        # slack).
+        mid = 0.5 * (pos_w[:, :3] + pos_w[:, 3:])
+        d = mid - self.kf_camera_center(kf_idx)[None, :]
+        dist = np.linalg.norm(d, axis=-1)
+        self.ml_normal[ids] = (
+            d / np.maximum(dist[:, None], 1e-9)
+        ).astype(np.float32)
+        self.ml_min_dist[ids] = dist
+        self.ml_max_dist[ids] = dist
+        self.kf_line_ml[kf_idx, line_slots] = ids
+        return ids
+
+    def replace_map_line(self, old: int, new: int):
+        """MapLine::Replace (add_src/MapLine.cpp): every observer of ``old``
+        switches to ``new`` unless it already observes ``new`` (then the
+        duplicate observation is erased); counters transfer; ``old`` dies."""
+        if old == new or not self.ml_valid[old]:
+            return
+        n = self.n_kf
+        tab = self.kf_line_ml[:n]
+        sees_new = (tab == new).any(axis=1)
+        rows, cols = np.nonzero(tab == old)
+        dup = sees_new[rows]
+        tab[rows[dup], cols[dup]] = -1
+        tab[rows[~dup], cols[~dup]] = new
+        self.ml_n_obs[new] += int((~dup).sum())
+        self.ml_found[new] += self.ml_found[old]
+        self.ml_visible[new] += self.ml_visible[old]
+        self.ml_valid[old] = False
+
+    def update_line_stats(self, ids=None):
+        """Refresh each map line's distinctive descriptor, mean viewing
+        direction, and distance band from its current observations
+        (MapLine::ComputeDistinctiveDescriptors add_src/MapLine.cpp:241 +
+        UpdateAverageDir :320). The round-2 design froze ``ml_desc`` at
+        creation; long-lived lines drifted away from their descriptor."""
+        if ids is None:
+            ids = np.flatnonzero(self.ml_valid)
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        ids = ids[self.ml_valid[ids]] if len(ids) else ids
+        n = self.n_kf
+        if len(ids) == 0 or n == 0:
+            return
+        tab = self.kf_line_ml[:n]
+        in_sel = np.zeros(self.ml_valid.shape[0], bool)
+        in_sel[ids] = True
+        hit = (tab >= 0) & in_sel[np.maximum(tab, 0)] & self.kf_valid[:n, None]
+        kk, ff = np.nonzero(hit)
+        if len(kk) == 0:
+            return
+        ml = tab[kk, ff]
+        order = np.argsort(ml, kind="stable")
+        kk, ff, ml = kk[order], ff[order], ml[order]
+        uniq, start, inv, cnt = np.unique(
+            ml, return_index=True, return_inverse=True, return_counts=True
+        )
+
+        # Distinctive descriptor: min-median pairwise squared-L2 over up to 8
+        # observation descriptors (float analogue of the Hamming min-median).
+        MAXO = 8
+        offs = np.arange(MAXO)
+        take = start[:, None] + np.minimum(offs[None, :], cnt[:, None] - 1)
+        kk_m, ff_m = kk[take], ff[take]
+        valid_o = offs[None, :] < cnt[:, None]
+        descs = self.kf_line_desc[kk_m, ff_m]  # (U, MAXO, 40)
+        diff = descs[:, :, None, :] - descs[:, None, :, :]
+        d2 = np.einsum("uabd,uabd->uab", diff, diff)
+        pair_ok = valid_o[:, None, :] & valid_o[:, :, None]
+        d2 = np.where(pair_ok, d2, np.inf)
+        srt = np.sort(d2, axis=2)
+        med_col = np.minimum(cnt, MAXO)[:, None] // 2
+        med = np.take_along_axis(
+            srt, med_col[:, :, None].repeat(MAXO, 1), 2
+        )[:, :, 0]
+        med = np.where(valid_o, med, np.inf)
+        best = np.argmin(med, axis=1)
+        self.ml_desc[uniq] = descs[np.arange(len(uniq)), best]
+
+        # Mean viewing direction (midpoint) + distance band.
+        C = self.camera_centers()
+        mid = 0.5 * (self.ml_pos[ml, :3] + self.ml_pos[ml, 3:])
+        d = mid - C[kk]
+        dist = np.linalg.norm(d, axis=1)
+        dn = d / np.maximum(dist[:, None], 1e-9)
+        nsum = np.zeros((len(uniq), 3), np.float64)
+        np.add.at(nsum, inv, dn)
+        nrm = np.linalg.norm(nsum, axis=1, keepdims=True)
+        self.ml_normal[uniq] = (nsum / np.maximum(nrm, 1e-9)).astype(
+            np.float32
+        )
+        dmin = np.full(len(uniq), np.inf)
+        dmax = np.zeros(len(uniq))
+        np.minimum.at(dmin, inv, dist)
+        np.maximum.at(dmax, inv, dist)
+        self.ml_min_dist[uniq] = dmin
+        self.ml_max_dist[uniq] = dmax
+
+    def cull_map_lines(self, ids):
+        ids = np.asarray(ids, np.int32)
+        if len(ids) == 0:
+            return
+        self.ml_valid[ids] = False
+        mask = np.isin(self.kf_line_ml[: self.n_kf], ids)
+        self.kf_line_ml[: self.n_kf][mask] = -1
+
+    def create_lils(self, kf_idx: int, lil_slots, state_w, plane_w, obs8):
+        """New InsectLine landmarks from unassociated frame LILs
+        (mbNewPlane path; insectline.cc ctor)."""
+        ids = self._alloc(self.il_valid, "_il_free_head", len(lil_slots),
+                          n_obs=self.il_n_obs, cull=self.cull_lils)
+        self.il_gen[ids] += 1
+        self.il_valid[ids] = True
+        self.il_state[ids] = state_w
+        self.il_plane[ids] = plane_w
+        self.il_first_kf[ids] = kf_idx
+        self.il_first_seq[ids] = self.kf_seq[kf_idx]
+        self.il_n_obs[ids] = 1
+        self.il_frame_obs[ids] = 1  # the creating frame observed it
+        self.kf_lil_il[kf_idx, lil_slots] = ids
+        self.kf_lil_obs[kf_idx, lil_slots] = obs8
+        return ids
+
+    def attach_lil_observations(self, kf_idx: int, lil_slots, il_ids, obs8):
+        """Record KF observations of existing map LILs (AddObservation)."""
+        self.kf_lil_il[kf_idx, lil_slots] = il_ids
+        self.kf_lil_obs[kf_idx, lil_slots] = obs8
+        np.add.at(self.il_n_obs, il_ids, 1)
+
+    def cull_lils(self, ids):
+        ids = np.asarray(ids, np.int32)
+        if len(ids) == 0:
+            return
+        self.il_valid[ids] = False
+        mask = np.isin(self.kf_lil_il[: self.n_kf], ids)
+        self.kf_lil_il[: self.n_kf][mask] = -1
 
     def cull_map_points(self, ids):
         ids = np.asarray(ids, np.int32)

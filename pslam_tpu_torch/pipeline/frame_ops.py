@@ -1,9 +1,9 @@
-"""Per-frame feature construction, RGB-D half (port of
-``pslam_tpu/pipeline/frame_ops.py``: ``FrameData`` and ``make_frame``).
+"""Per-frame feature construction, RGB-D (port of
+``pslam_tpu/pipeline/frame_ops.py``: ``make_frame`` and ``make_frame_lines``).
 
 Replaces the Frame RGB-D constructor pipeline (reference src/Frame.cc:133-210:
-ExtractORB -> UndistortKeyPoints -> ComputeStereoFromRGBD). The line
-frontend and stereo frames are not part of this slice.
+ExtractORB -> ExtractLSD -> UndistortKeyPoints -> ComputeStereoFromRGBD).
+Stereo frames are not ported yet.
 """
 
 from __future__ import annotations
@@ -13,7 +13,11 @@ from typing import NamedTuple
 import torch
 
 from pslam_tpu_torch.geometry import Camera, backproject, undistort_points
+from pslam_tpu_torch.ops.fans import LILFeatures, build_lils
 from pslam_tpu_torch.ops.image import gather_pixels
+from pslam_tpu_torch.ops.lbd import line_descriptors
+from pslam_tpu_torch.ops.line3d import fit_lines_3d
+from pslam_tpu_torch.ops.lines import LineConfig, detect_lines
 from pslam_tpu_torch.ops.orb import OrbConfig, OrbFeatures, extract_orb
 
 
@@ -52,4 +56,41 @@ def make_frame(img, depth_img, cam: Camera, orb_cfg: OrbConfig) -> FrameData:
         angle=feats.angle,
         desc=feats.desc,
         valid=feats.valid,
+    )
+
+
+class FrameLineData(NamedTuple):
+    """Device-side line features of one frame (capacity NL) + LIL set: the
+    line part of the Frame ctor (ExtractLSD + isLineGood + fan detection +
+    plane build, Frame.cc:489-646)."""
+
+    sp: torch.Tensor  # (NL, 2)
+    ep: torch.Tensor  # (NL, 2)
+    eq2d: torch.Tensor  # (NL, 3) normalized image-line equations
+    angle: torch.Tensor  # (NL,)
+    length: torch.Tensor  # (NL,)
+    desc: torch.Tensor  # (NL, D) float band descriptors
+    valid: torch.Tensor  # (NL,)
+    p3s: torch.Tensor  # (NL, 3) camera-frame 3D endpoints (mvLines3D)
+    p3e: torch.Tensor  # (NL, 3)
+    dir3d: torch.Tensor  # (NL, 3) normalized 3D direction (mvLineEq)
+    ok3d: torch.Tensor  # (NL,)
+    lil: LILFeatures  # structural-line hypotheses
+
+
+def make_frame_lines(
+    img, depth_img, cam: Camera, line_cfg: LineConfig, n_lil: int = 64
+) -> FrameLineData:
+    """The line half of the per-frame frontend."""
+    lf = detect_lines(img, line_cfg)
+    desc = line_descriptors(img, lf.sp, lf.ep, lf.valid)
+    p3s, p3e, d3, ok3 = fit_lines_3d(cam, depth_img, lf.sp, lf.ep, lf.valid)
+    lil = build_lils(
+        lf.sp, lf.ep, lf.eq2d, lf.valid, p3s, p3e, d3, ok3,
+        n_lil=n_lil, width=cam.width, height=cam.height,
+    )
+    return FrameLineData(
+        sp=lf.sp, ep=lf.ep, eq2d=lf.eq2d, angle=lf.angle, length=lf.length,
+        desc=desc, valid=lf.valid, p3s=p3s, p3e=p3e, dir3d=d3, ok3d=ok3,
+        lil=lil,
     )

@@ -1,5 +1,5 @@
-"""System facade + tracking orchestration for the points-only RGB-D slice
-(port of ``pslam_tpu/pipeline/system.py``).
+"""System facade + tracking orchestration for the RGB-D slice (port of
+``pslam_tpu/pipeline/system.py``).
 
 Replaces System (reference src/System.cc) and the Tracking state machine
 (src/Tracking.cc): per-frame entry point, initialization, motion-model
@@ -11,9 +11,12 @@ Host/device split: the host keeps ``MapState`` (numpy) and makes control
 decisions; each frame runs ``frame_step`` on ``self.device`` and reads back
 one 24-float summary. Frame arrays are read back only at keyframe insertion.
 
-This slice covers BASELINE config 1 (``use_lines=False, use_bow=False,
-use_loop_closing=False``, ``sensor="rgbd"``, ``distributed=False``); the
-constructor raises ``NotImplementedError`` for anything else.
+This slice covers RGB-D tracking with points (BASELINE config 1,
+``use_lines=False``), with map lines (config 2, ``use_lils=False``) and with
+structural lines and the LIL composite error (config 3, the default),
+without BoW and loop closing: ``use_bow=False, use_loop_closing=False,
+sensor="rgbd", distributed=False``. The constructor raises
+``NotImplementedError`` for anything else.
 """
 
 from __future__ import annotations
@@ -27,13 +30,20 @@ import torch
 
 from pslam_tpu_torch.geometry.lie import rotation_to_quaternion
 from pslam_tpu_torch.models.map_state import MapState
+from pslam_tpu_torch.ops.fans import LILFeatures
 from pslam_tpu_torch.pipeline import frame_step as fstep
-from pslam_tpu_torch.pipeline import local_mapping
-from pslam_tpu_torch.pipeline.frame_ops import FrameData, make_frame
+from pslam_tpu_torch.pipeline import line_mapping, local_mapping
+from pslam_tpu_torch.pipeline.frame_ops import (
+    FrameData,
+    FrameLineData,
+    make_frame,
+    make_frame_lines,
+)
 from pslam_tpu_torch.pipeline.track_ops import (
     PointSet,
     track_against_points_unwindowed,
 )
+from pslam_tpu_torch.solver.ba_lil import local_bundle_adjustment_lil
 from pslam_tpu_torch.solver.local_ba import local_bundle_adjustment
 from pslam_tpu_torch.utils.config import SlamConfig
 
@@ -64,6 +74,17 @@ class HostFrame:
     desc: np.ndarray | None = None
     valid: np.ndarray | None = None
     feat_mp: np.ndarray | None = None  # map point id per feature, -1 = none
+    # Line features (present when cfg.use_lines).
+    line_sp: np.ndarray | None = None
+    line_ep: np.ndarray | None = None
+    line_desc: np.ndarray | None = None
+    line_valid: np.ndarray | None = None
+    line_p3s: np.ndarray | None = None
+    line_p3e: np.ndarray | None = None
+    line_ok3d: np.ndarray | None = None
+    line_ml: np.ndarray | None = None  # map-line id per line slot, -1 none
+    lil: LILFeatures | None = None  # host (numpy) copy of the frame's LILs
+    lil_il: np.ndarray | None = None  # map-InsectLine id per LIL slot
 
 
 def _np(t):
@@ -76,7 +97,7 @@ class SlamSystem:
         c = self.cfg
         unsupported = [
             name for name, on in (
-                ("use_lines", c.use_lines), ("use_bow", c.use_bow),
+                ("use_bow", c.use_bow),
                 ("use_loop_closing", c.use_loop_closing),
                 ("sensor != 'rgbd'", c.sensor != "rgbd"),
                 ("distributed", c.distributed),
@@ -84,9 +105,9 @@ class SlamSystem:
         ]
         if unsupported:
             raise NotImplementedError(
-                "the PyTorch port covers the points-only RGB-D slice "
-                "(use_lines=False, use_bow=False, use_loop_closing=False, "
-                f"sensor='rgbd', distributed=False); got {', '.join(unsupported)}"
+                "the PyTorch port covers RGB-D tracking with points, lines and "
+                "LILs (use_bow=False, use_loop_closing=False, sensor='rgbd', "
+                f"distributed=False); got {', '.join(unsupported)}"
             )
         self.device = torch.device(device)
         self.map = MapState(self.cfg)
@@ -107,12 +128,19 @@ class SlamSystem:
         self._snap = None
         self._acc = None
         self._snap_pt_ids = np.zeros(0, np.int64)
+        self._snap_ml_ids = np.zeros(0, np.int64)
+        self._snap_il_ids = np.zeros(0, np.int64)
         self._snap_pt_gen = np.zeros(0, np.int64)
+        self._snap_ml_gen = np.zeros(0, np.int64)
+        self._snap_il_gen = np.zeros(0, np.int64)
         self._pending_ba = None
         self._pending_backend = None
         self._snap_epoch = 0
 
     # ------------------------------------------------------------------
+
+    def _count(self, key: str, n: int):
+        self.stats[key] = self.stats.get(key, 0) + n
 
     def _tensor(self, a):
         return torch.as_tensor(np.asarray(a, np.float32)).to(self.device)
@@ -128,6 +156,10 @@ class SlamSystem:
         else:
             fd = make_frame(gray_d, depth_d, self.cfg.camera, self.cfg.orb)
             hf = self._to_host(fd, timestamp)
+            if self.cfg.use_lines:
+                fl = make_frame_lines(gray_d, depth_d, self.cfg.camera, self.cfg.lines,
+                                      self.cfg.caps.frame_lils)
+                self._lines_to_host(hf, fl)
             if self.state in (TrackState.NO_IMAGES_YET, TrackState.NOT_INITIALIZED):
                 self._initialize(hf)
                 self._invalidate_snapshot(fold=False)
@@ -168,6 +200,15 @@ class SlamSystem:
             feat_mp=np.full(fd.uv.shape[0], -1, np.int32),
         )
 
+    def _lines_to_host(self, hf: HostFrame, fl: FrameLineData):
+        (hf.line_sp, hf.line_ep, hf.line_desc, hf.line_valid, hf.line_p3s,
+         hf.line_p3e, hf.line_ok3d) = (
+            _np(a) for a in (fl.sp, fl.ep, fl.desc, fl.valid, fl.p3s, fl.p3e, fl.ok3d)
+        )
+        hf.line_ml = np.full(len(hf.line_valid), -1, np.int32)
+        hf.lil = LILFeatures(*(_np(a) for a in fl.lil))
+        hf.lil_il = np.full(self.cfg.caps.frame_lils, -1, np.int32)
+
     def _initialize(self, hf: HostFrame):
         """StereoInitialization (Tracking.cc:555-657): need enough
         depth-valid features, create the first KF and its map points."""
@@ -186,6 +227,10 @@ class SlamSystem:
         X_w = hf.xyz_c[sel]  # identity pose: camera frame == world frame
         ids = self.map.create_points_from_depth(kf, sel, X_w)
         hf.feat_mp[sel] = ids
+        if self.cfg.use_lines and hf.line_valid is not None:
+            line_mapping.create_or_attach_lines(self.map, kf, hf, hf.T_cw)
+            if self.cfg.use_lils:
+                line_mapping.create_or_attach_lils(self.map, kf, hf, hf.T_cw)
         self.ref_kf = kf
         self.state = TrackState.OK
         self.stats["kf_inserted"] += 1
@@ -282,10 +327,10 @@ class SlamSystem:
         return out2, _np(out2.summary)
 
     def _materialize_host_frame(self, hf: HostFrame, out):
-        """Read back the frame's feature arrays + point associations
-        (keyframe insertion only). Associations to landmarks culled since the
-        snapshot are masked by validity, to slots culled AND recycled by the
-        generation check."""
+        """Read back the frame's feature arrays + point, line and LIL
+        associations (keyframe insertion only). Associations to landmarks
+        culled since the snapshot are masked by validity, to slots culled AND
+        recycled by the generation check."""
         m_ = self.map
         fd = out.fd
         (hf.uv, hf.ur, hf.depth, hf.xyz_c, hf.level, hf.angle, hf.desc,
@@ -301,6 +346,20 @@ class SlamSystem:
             (mp[:n] >= 0) & inl[:n] & m_.mp_valid[ids_s] & (m_.mp_gen[ids_s] == gen_s)
         )
         hf.feat_mp[mp[:n][good]] = ids_s[good]
+        if not (self.cfg.use_lines and out.fl is not None):
+            return
+        self._lines_to_host(hf, out.fl)
+        lm, qm = _np(out.line_match), _np(out.lil_match)
+        ml_s, nl = self._snap_ml_ids, len(self._snap_ml_ids)
+        src = np.flatnonzero(
+            (lm[:nl] >= 0) & m_.ml_valid[ml_s] & (m_.ml_gen[ml_s] == self._snap_ml_gen)
+        )
+        hf.line_ml[lm[:nl][src]] = ml_s[src]
+        if self.cfg.use_lils:
+            il_s, il_g = self._snap_il_ids, self._snap_il_gen
+            ok = (qm >= 0) & (qm < len(il_s))
+            ok[ok] = m_.il_valid[il_s[qm[ok]]] & (m_.il_gen[il_s[qm[ok]]] == il_g[qm[ok]])
+            hf.lil_il[ok] = il_s[qm[ok]]
 
     def _need_new_keyframe(self, hf: HostFrame, summary) -> bool:
         """NeedNewKeyFrame (Tracking.cc:1410-1515), RGB-D branch, from the
@@ -325,12 +384,23 @@ class SlamSystem:
         """Upload a fresh tracker view of the map (keyframe events only)."""
         self._fold_acc()
         self._snap_epoch += 1
-        m = self.map
-        pt_ids = m.local_map_points(self._local_keyframes(), self.cfg.caps.local_points)
-        self._snap = fstep.build_snapshot(m, self.cfg, pt_ids, self.device)
+        cfg, m = self.cfg, self.map
+        local_kfs = self._local_keyframes()
+        pt_ids = m.local_map_points(local_kfs, cfg.caps.local_points)
+        ml_ids = np.zeros(0, np.int64)
+        il_ids = np.zeros(0, np.int64)
+        if cfg.use_lines:
+            ml_ids = line_mapping.local_map_lines(m, local_kfs, cfg.caps.local_lines)
+            if cfg.use_lils:
+                il_ids = np.flatnonzero(m.il_valid)[: cfg.caps.local_lils]
+        self._snap = fstep.build_snapshot(m, cfg, pt_ids, self.device, ml_ids, il_ids)
         self._snap_pt_ids = np.asarray(pt_ids, np.int64)
+        self._snap_ml_ids = np.asarray(ml_ids, np.int64)
+        self._snap_il_ids = np.asarray(il_ids, np.int64)
         self._snap_pt_gen = m.mp_gen[self._snap_pt_ids].copy()
-        self._acc = fstep.make_acc(self.cfg, self.device)
+        self._snap_ml_gen = m.ml_gen[self._snap_ml_ids].copy()
+        self._snap_il_gen = m.il_gen[self._snap_il_ids].copy()
+        self._acc = fstep.make_acc(cfg, self.device)
 
     def _fold_acc(self):
         """Fold the device found/visible accumulators into the host map
@@ -338,15 +408,25 @@ class SlamSystem:
         if self._acc is None or self._snap is None:
             return
         m = self.map
+        a = type(self._acc)(*(_np(x) for x in self._acc))
+        # Gen guard: don't credit a slot recycled since the snapshot.
         n = len(self._snap_pt_ids)
         if n:
-            vis = _np(self._acc.pt_vis)[:n]
-            found = _np(self._acc.pt_found)[:n]
-            # Gen guard: don't credit a slot recycled since the snapshot.
             ok = m.mp_gen[self._snap_pt_ids] == self._snap_pt_gen
             ids = self._snap_pt_ids[ok]
-            np.add.at(m.mp_visible, ids, vis[ok])
-            np.add.at(m.mp_found, ids, found[ok])
+            np.add.at(m.mp_visible, ids, a.pt_vis[:n][ok])
+            np.add.at(m.mp_found, ids, a.pt_found[:n][ok])
+        nl = len(self._snap_ml_ids)
+        if nl:
+            ok = m.ml_gen[self._snap_ml_ids] == self._snap_ml_gen
+            ids = self._snap_ml_ids[ok]
+            np.add.at(m.ml_visible, ids, a.ml_vis[:nl][ok])
+            np.add.at(m.ml_found, ids, a.ml_found[:nl][ok])
+        nq = len(self._snap_il_ids)
+        if nq:
+            # AddFrameObservation (Map.cc:268 -> insectline.cc:39-43).
+            ok = m.il_gen[self._snap_il_ids] == self._snap_il_gen
+            np.add.at(m.il_frame_obs, self._snap_il_ids[ok], a.il_obs[:nq][ok])
         self._acc = None
 
     def _invalidate_snapshot(self, fold: bool = True):
@@ -398,11 +478,29 @@ class SlamSystem:
             ids = self.map.create_points_from_depth(kf, sel, X_w.astype(np.float32))
             hf.feat_mp[sel] = ids
 
+        # Lines & structural lines onto the new KF.
+        use_lines = self.cfg.use_lines and hf.line_valid is not None
+        if use_lines:
+            line_mapping.create_or_attach_lines(self.map, kf, hf, hf.T_cw)
+            if self.cfg.use_lils:
+                line_mapping.create_or_attach_lils(self.map, kf, hf, hf.T_cw)
+                self._count("lils_culled",
+                            line_mapping.cull_lils_by_quality(self.map, self.cfg))
+            self.stats["culled"] += line_mapping.cull_lines(self.map, self.cfg)
+
         # Backend (LocalMapping::Run order, LocalMapping.cc:47-120): point
-        # culling, epipolar triangulation, neighbour fuse, local BA, keyframe
-        # culling. Triangulation, fuse and BA are dispatched here and
-        # committed at the next keyframe event.
+        # culling, epipolar triangulation, line triangulation, neighbour
+        # fuse, local BA, keyframe culling. Point triangulation, point fuse
+        # and BA are dispatched here and committed at the next keyframe
+        # event; the line stages are host numpy and run inline.
         self.stats["culled"] += local_mapping.cull_points(self.map, self.cfg)
+        if use_lines:
+            self._count("lines_triangulated",
+                        line_mapping.create_new_map_lines(self.map, kf, self.cfg))
+            self._count("lines_fused",
+                        line_mapping.fuse_lines_in_neighbors(self.map, kf, self.cfg))
+            row = self.map.kf_line_ml[kf]
+            self.map.update_line_stats(np.unique(row[row >= 0]))
         self._dispatch_backend(kf)
         row = self.map.kf_feat_mp[kf]
         self.map.update_point_stats(np.unique(row[row >= 0]))
@@ -426,7 +524,7 @@ class SlamSystem:
         )
         self._retarget_trajectory(victim)
         m.erase_keyframe(victim)
-        self.stats["kf_evicted"] = self.stats.get("kf_evicted", 0) + 1
+        self._count("kf_evicted", 1)
 
     def _cull_keyframes(self, kf: int):
         """KeyFrameCulling + the trajectory bookkeeping the map can't do."""
@@ -436,7 +534,7 @@ class SlamSystem:
         for k in victims:
             self._retarget_trajectory(k)
             self.map.erase_keyframe(k)
-        self.stats["kf_culled"] = self.stats.get("kf_culled", 0) + len(victims)
+        self._count("kf_culled", len(victims))
 
     def _retarget_trajectory(self, k: int):
         """Re-reference trajectory rows pointing at KF ``k`` to its best
@@ -468,13 +566,34 @@ class SlamSystem:
         if out is None:
             return
         prob, cam_ids, pt_ids, e_feat, n_e = out
+        cfg = self.cfg
+        # Host reads happen before the solve is queued, so they do not wait
+        # for it.
+        free_slot = _np(prob.free_slot)
+        lil_pack = None
+        if cfg.use_lines and cfg.use_lils:
+            lil_pack = line_mapping.assemble_lil_edges(self.map, cam_ids, cfg, self.device)
+        lil_opt = il_ids = None
+        n_lil_edges = 0
+        if lil_pack is not None:
+            lil_state, lil_valid, ledges, il_ids = lil_pack
+            n_lil_edges = int(_np(ledges.valid).sum())
+            T_opt, X_opt, lil_opt, in_p, _ = local_bundle_adjustment_lil(
+                cfg.camera, prob, lil_state, lil_valid, ledges, cfg.caps.ba_free
+            )
+            result = (T_opt, X_opt, in_p)
+        else:
+            result = local_bundle_adjustment(cfg.camera, prob, cfg.caps.ba_free)[:3]
         self._pending_ba = {
-            "result": local_bundle_adjustment(self.cfg.camera, prob, self.cfg.caps.ba_free),
+            "result": result,
+            "lil_opt": lil_opt,
+            "il_ids": il_ids,
+            "n_lil_edges": n_lil_edges,
             "cam_ids": cam_ids,
             "pt_ids": pt_ids,
             "e_feat": e_feat,
             "n_e": n_e,
-            "free_slot": _np(prob.free_slot),
+            "free_slot": free_slot,
         }
 
     def _commit_pending_ba(self):
@@ -483,8 +602,24 @@ class SlamSystem:
         if p is None:
             return
         self._pending_ba = None
+        if p["lil_opt"] is not None:
+            # Write back LIL structures + refresh plane offsets (d = -mean
+            # n.p; the rigid-translation update leaves n unchanged).
+            m = self.map
+            il_ids = p["il_ids"]
+            sel = il_ids >= 0
+            ids = il_ids[sel]
+            alive = m.il_valid[ids]
+            ids, st = ids[alive], _np(p["lil_opt"])[sel][alive]
+            m.il_state[ids] = st
+            n = m.il_plane[ids, :3]
+            d = -np.einsum("qj,qpj->q", n, st.reshape(-1, 5, 3)) / 5.0
+            flip = d < 0
+            pl = np.concatenate([np.where(flip[:, None], -n, n), np.abs(d)[:, None]], axis=1)
+            m.il_plane[ids] = pl.astype(np.float32)
+            self._count("lil_ba_edges", p["n_lil_edges"])
         local_mapping.write_back_ba(
-            self.map, tuple(_np(t) for t in p["result"]), p["cam_ids"],
+            self.map, tuple(_np(t) for t in p["result"]) + (None,), p["cam_ids"],
             p["pt_ids"], p["e_feat"], p["n_e"], p["free_slot"],
         )
         self.stats["ba_runs"] += 1
@@ -503,13 +638,10 @@ class SlamSystem:
             return
         self._pending_backend = None
         if p["tri"] is not None:
-            self.stats["triangulated"] = self.stats.get("triangulated", 0) + (
-                local_mapping.commit_triangulation(self.map, p["tri"], self.cfg)
-            )
+            self._count("triangulated",
+                        local_mapping.commit_triangulation(self.map, p["tri"], self.cfg))
         if p["fuse"] is not None:
-            self.stats["fused"] = self.stats.get("fused", 0) + (
-                local_mapping.commit_fuse(self.map, p["fuse"], self.cfg)
-            )
+            self._count("fused", local_mapping.commit_fuse(self.map, p["fuse"], self.cfg))
 
     # ------------------------------------------------------------------
 
@@ -528,7 +660,7 @@ class SlamSystem:
         self.state = TrackState.NOT_INITIALIZED
         self.velocity = np.eye(4, dtype=np.float32)
         self.ref_kf = 0
-        self.stats["resets"] = self.stats.get("resets", 0) + 1
+        self._count("resets", 1)
 
     def flush(self):
         """Commit in-flight device work (local BA, backend, found/visible

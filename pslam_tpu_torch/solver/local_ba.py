@@ -7,13 +7,19 @@ Optimizer::LocalBundleAdjustment (reference src/Optimizer.cc:1968-2534):
   are pinned by leaving them out of the reduced system (g2o setFixed);
 - marginalized point landmarks: per-point 3x3 blocks inverted in closed
   form; the reduced camera system ``S = Hcc - sum_p G_p Hpp_p^-1 G_p^T`` is
-  assembled with ``index_add_`` scatters over the edge list (the JAX
-  package's scatter path; its TPU one-hot matmul assembly is not carried
-  over) and solved dense;
+  assembled by summing per-edge blocks into their targets (the JAX package's
+  scatter path; its TPU one-hot matmul assembly is not carried over) and
+  solved dense;
 - LM schedule 5 robust iterations -> chi2 + depth outlier gate -> 10
   iterations, matching Optimizer.cc:2356-2420;
 - returns updated poses, points and the per-edge inlier classification the
   host uses to erase outlier observations (Optimizer.cc:2482-2503).
+
+The block sums are deterministic on every device: the edge -> block maps are
+fixed for a whole problem, so ``segment_table`` sorts the edges by target
+once and every LM iteration sums each target's edges in that fixed order
+(a gather plus a sum over a padded axis). A float ``index_add_`` on CUDA adds
+in atomic order and would make two runs of one input differ.
 """
 
 from __future__ import annotations
@@ -79,33 +85,76 @@ def _edge_terms(cam: Camera, prob: BAProblem, T_all, X_all, active, use_huber: b
     return chi2, w_eff, r, Jc, Jp, cost
 
 
-def _assemble(prob: BAProblem, n_free: int, w_eff, r, Jc, Jp):
-    """Blocks of the normal equations from per-edge terms:
-    (Hcc (F, 6, 6), bc (F, 6), Hpp (P, 3, 3), bp (P, 3), G (P, F, 6, 3))."""
-    P = prob.X_w.shape[0]
-    slot_e = prob.free_slot[prob.cam_idx]
-    slot_safe = torch.where(slot_e >= 0, slot_e, n_free)  # overflow row dropped
+def segment_table(target, n_targets: int):
+    """Fixed-order gather table for summing edge rows into targets.
 
+    ``target`` (E,) int64 holds each edge's target in [0, n_targets); any
+    other value drops the edge. Returns (n_targets, K) int64 edge indices,
+    each row in increasing edge order and padded with E (a zero row), K the
+    largest count. One host read of K per table."""
+    E = target.shape[0]
+    dev = target.device
+    keep = (target >= 0) & (target < n_targets)
+    t = torch.where(keep, target, n_targets)
+    order = torch.sort(t, stable=True).indices
+    t_sorted = t[order]
+    counts = torch.bincount(t, minlength=n_targets + 1)
+    K = max(int(counts[:n_targets].max()) if n_targets else 0, 1)
+    start = torch.cumsum(counts, 0) - counts
+    pos = torch.arange(E, device=dev) - start[t_sorted]
+    real = t_sorted < n_targets
+    table = torch.full((n_targets + 1, K), E, dtype=torch.int64, device=dev)
+    table[t_sorted[real], pos[real]] = order[real]
+    return table[:n_targets]
+
+
+def segment_sum(vals, table):
+    """(E, ...) edge rows -> (n_targets, ...) sums, in the table's order."""
+    padded = torch.cat([vals, vals.new_zeros((1,) + vals.shape[1:])])
+    return padded[table].sum(dim=1)
+
+
+class AssemblyPlan(NamedTuple):
+    """Gather tables of one BA problem's edge -> block maps."""
+
+    cam: torch.Tensor  # (F, Kc) edges per free camera
+    lm: torch.Tensor  # (P, Kp) edges per landmark
+    lm_cam: torch.Tensor  # (P * F, Kg) edges per (landmark, free camera)
+
+
+def assembly_plan(free_slot, cam_idx, lm_idx, valid, n_free: int, n_lm: int):
+    """Tables for ``_assemble``. Edges that are not ``valid`` carry zero
+    weight and are left out; edges of fixed cameras reach no camera block."""
+    slot_e = torch.where(valid, free_slot[cam_idx], -1)
+    lm_e = torch.where(valid, lm_idx, -1)
+    lm_cam = torch.where(slot_e >= 0, lm_e * n_free + slot_e, -1)
+    return AssemblyPlan(
+        cam=segment_table(slot_e, n_free),
+        lm=segment_table(lm_e, n_lm),
+        lm_cam=segment_table(lm_cam, n_lm * n_free),
+    )
+
+
+def _problem_plan(prob: BAProblem, n_free: int) -> AssemblyPlan:
+    return assembly_plan(prob.free_slot, prob.cam_idx, prob.pt_idx, prob.edge_valid,
+                         n_free, prob.X_w.shape[0])
+
+
+def _assemble(plan: AssemblyPlan, n_free: int, w_eff, r, Jc, Jp):
+    """Blocks of the normal equations from per-edge terms:
+    (Hcc (F, 6, 6), bc (F, 6), Hpp (L, 3, 3), bp (L, 3), G (L, F, 6, 3)) for
+    L landmarks with 3-d updates (points, or LILs in solver/ba_lil.py)."""
     w = w_eff[..., None, None]
     Hcc_e = torch.einsum("eij,eik->ejk", Jc, Jc) * w
     Hpp_e = torch.einsum("eij,eik->ejk", Jp, Jp) * w
     Hcp_e = torch.einsum("eij,eik->ejk", Jc, Jp) * w
     bc_e = -torch.einsum("eij,ei->ej", Jc, r) * w_eff[..., None]
     bp_e = -torch.einsum("eij,ei->ej", Jp, r) * w_eff[..., None]
-
-    dt, dev = Jc.dtype, Jc.device
-    Hcc = torch.zeros((n_free + 1, 6, 6), dtype=dt, device=dev).index_add_(
-        0, slot_safe, Hcc_e)[:n_free]
-    bc = torch.zeros((n_free + 1, 6), dtype=dt, device=dev).index_add_(
-        0, slot_safe, bc_e)[:n_free]
-    Hpp = torch.zeros((P, 3, 3), dtype=dt, device=dev).index_add_(0, prob.pt_idx, Hpp_e)
-    bp = torch.zeros((P, 3), dtype=dt, device=dev).index_add_(0, prob.pt_idx, bp_e)
-    flat = prob.pt_idx * (n_free + 1) + slot_safe
-    G = (
-        torch.zeros((P * (n_free + 1), 6, 3), dtype=dt, device=dev)
-        .index_add_(0, flat, Hcp_e)
-        .reshape(P, n_free + 1, 6, 3)[:, :n_free]
-    )
+    Hcc = segment_sum(Hcc_e, plan.cam)
+    bc = segment_sum(bc_e, plan.cam)
+    Hpp = segment_sum(Hpp_e, plan.lm)
+    bp = segment_sum(bp_e, plan.lm)
+    G = segment_sum(Hcp_e, plan.lm_cam).reshape(-1, n_free, 6, 3)
     return Hcc, bc, Hpp, bp, G
 
 
@@ -161,6 +210,8 @@ def local_bundle_adjustment(
 
     Returns (T_opt (C, 4, 4), X_opt (P, 3), edge_inlier (E,), chi2 (E,))."""
 
+    plan = _problem_plan(prob, n_free)
+
     def lm_phase(T_all, X_all, active, n_iters, use_huber):
         # One edge-term evaluation per iteration: the terms at the current
         # estimate ride along; each step solves from them, evaluates the
@@ -172,7 +223,7 @@ def local_bundle_adjustment(
         terms, cost = terms_of(T_all, X_all)
         lam = torch.tensor(1e-4, dtype=T_all.dtype, device=T_all.device)
         for _ in range(n_iters):
-            Hcc, bc, Hpp, bp, G = _assemble(prob, n_free, *terms)
+            Hcc, bc, Hpp, bp, G = _assemble(plan, n_free, *terms)
             dx_c, dx_p = _solve_schur(Hcc, bc, Hpp, bp, G, prob.point_valid, lam)
             T_new, X_new = _apply(prob, T_all, X_all, dx_c, dx_p)
             terms_new, cost_new = terms_of(T_new, X_new)

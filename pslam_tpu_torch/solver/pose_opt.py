@@ -1,4 +1,4 @@
-"""Pose-only optimization, point edges (port of ``pslam_tpu/solver/pose_opt.py``).
+"""Pose-only optimization (port of ``pslam_tpu/solver/pose_opt.py``).
 
 Optimizer::PoseOptimization (reference src/Optimizer.cc:239-1023) as a
 Levenberg-Marquardt loop over a fixed-capacity masked edge list: 4 rounds x
@@ -11,8 +11,13 @@ The loop follows the JAX package's fused path (``_pose_optimization_fused``):
 each iteration evaluates ``ops.fused_pose.pose_terms`` once at the proposal
 (kernel K2 on CUDA tensors), so a solve is 4 x (1 + 10) + 4 + 1 = 49 calls.
 Accept/reject stays on the device (``torch.where``) and the 6x6 step uses
-``torch.linalg.solve_ex``, so the loop never waits for the host. Structural-
-line (LIL) terms are not part of this slice.
+``torch.linalg.solve_ex``, so the loop never waits for the host.
+
+Structural-line (LIL) edges (solver/lil.py) join the same normal equations
+through the optional ``lil`` argument, as in the JAX package's fused path
+(Optimizer.cc:619-694: LIL vertices fixed, info I*0.01, Huber sqrt(11.07),
+per-round chi2 gate 11.07). Their terms are plain torch beside each K2 call;
+K2 itself and its 49 calls per solve do not change.
 """
 
 from __future__ import annotations
@@ -27,6 +32,12 @@ from pslam_tpu_torch.ops.fused_pose import (
     pack_pose_params,
     pose_param_tail,
     pose_terms,
+)
+from pslam_tpu_torch.solver.lil import (
+    CHI2_LIL,
+    LILPoseObs,
+    lil_residual_jac,
+    lil_weights,
 )
 from pslam_tpu_torch.solver.reproj import stereo_residual_jac
 from pslam_tpu_torch.solver.robust import CHI2_MONO, CHI2_STEREO, huber_weight
@@ -72,6 +83,16 @@ def _gn_system(w_eff, r, J, row_mask):
     return H, b
 
 
+def _lil_terms(cam: Camera, T, lil: LILPoseObs, use_huber: bool, active):
+    """H (6, 6), b (6,), cost, chi2 (N,) of the LIL edges at pose T
+    (landmarks fixed, Optimizer.cc:650)."""
+    r, J, _, _ = lil_residual_jac(cam, T[None], lil.state, lil.obs)
+    chi2, w_eff, cost = lil_weights(r, active, use_huber)
+    H = torch.einsum("nij,nik,n->jk", J, J, w_eff)
+    b = -torch.einsum("nij,ni,n->j", J, r, w_eff)
+    return H, b, cost, chi2
+
+
 def _lm_step(H, b, lam):
     """Damped 6x6 solve (no host sync: solve_ex does not check ``info``)."""
     eye = torch.eye(6, dtype=H.dtype, device=H.device)
@@ -85,10 +106,13 @@ def pose_optimization(
     po: PoseObs,
     rounds: int = 4,
     iters_per_round: int = 10,
+    lil: LILPoseObs | None = None,
 ):
-    """Optimize a single camera pose against fixed world points.
+    """Optimize a single camera pose against fixed world points, plus fixed
+    structural-line landmarks when ``lil`` is given.
 
-    Returns (T_opt (4, 4), inlier_mask (N,), chi2 (N,))."""
+    Returns (T_opt (4, 4), inlier_mask (N,), chi2 (N,), lil_inlier (Nl,) or
+    None)."""
     N = po.valid.shape[0]
     E = -(-N // 128) * 128
     dev = T_init.device
@@ -103,13 +127,16 @@ def pose_optimization(
         torch.tensor(CHI2_MONO, device=dev),
     )
 
-    def lm_round(T, active, use_huber: bool):
+    def lm_round(T, active, lil_active, use_huber: bool):
         data = data0.clone()
         data[7, :N] = (active & po.valid).to(torch.float32)
         tail = tails[use_huber]
 
         def all_terms(T):
             H, b, cost, _ = pose_terms(data, pack_pose_params(T, tail))
+            if lil is not None:
+                Hx, bx, cost_x, _ = _lil_terms(cam, T, lil, use_huber, lil_active)
+                H, b, cost = H + Hx, b + bx, cost + cost_x
             return H, b, cost
 
         H, b, cost = all_terms(T)
@@ -133,10 +160,14 @@ def pose_optimization(
         return chi2[:N]
 
     active = po.valid
+    lil_active = None if lil is None else lil.valid
     T = T_init
     for rnd in range(rounds):
-        T = lm_round(T, active, rnd < 2)
+        T = lm_round(T, active, lil_active, rnd < 2)
         chi2 = classify(T)
         active = po.valid & (chi2 <= gate)
+        if lil is not None:
+            *_, lchi2 = _lil_terms(cam, T, lil, False, lil.valid)
+            lil_active = lil.valid & (lchi2 <= CHI2_LIL)
     chi2 = classify(T)
-    return T, active, chi2
+    return T, active, chi2, lil_active

@@ -9,26 +9,8 @@ from __future__ import annotations
 import dataclasses
 
 from pslam_tpu_torch.geometry import Camera
+from pslam_tpu_torch.ops.lines import LineConfig
 from pslam_tpu_torch.ops.orb import OrbConfig
-
-
-@dataclasses.dataclass(frozen=True)
-class LineConfig:
-    """Field-only copy of ``pslam_tpu.ops.lines.LineConfig``: the line
-    frontend is not ported yet, but ``MapState`` sizes its per-keyframe line
-    tables from ``n_lines``."""
-
-    n_lines: int = 128
-    tile: int = 16
-    mag_thr: float = 12.0
-    align_tol: float = 0.3927
-    min_support_frac: float = 0.045
-    max_perp_spread: float = 1.2
-    min_len: float = 18.0
-    merge_passes: int = 4
-    merge_angle: float = 0.06
-    merge_perp: float = 2.0
-    merge_gap: float = 24.0
 
 
 @dataclasses.dataclass(frozen=True)

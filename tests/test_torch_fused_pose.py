@@ -98,11 +98,12 @@ def test_pose_optimization_matches_jax(seed, N):
         JPoseObs(X_w=jnp.asarray(X), obs=jnp.asarray(obs),
                  inv_sigma2=jnp.asarray(inv_s2), valid=jnp.asarray(valid)),
     )
-    T_t, in_t, chi2_t = t_pose_opt(
+    T_t, in_t, chi2_t, lil_t = t_pose_opt(
         TCam(**CAM_KW), torch.from_numpy(T0),
         TPoseObs(X_w=torch.from_numpy(X), obs=torch.from_numpy(obs),
                  inv_sigma2=torch.from_numpy(inv_s2), valid=torch.from_numpy(valid)),
     )
+    assert lil_t is None  # no LIL edges given
     T_j, T_t = np.asarray(T_j), T_t.numpy()
     assert _rot_err(T_j[:3, :3], T_t[:3, :3]) <= 1e-4
     assert np.abs(T_j[:3, 3] - T_t[:3, 3]).max() <= 1e-4
