@@ -1,16 +1,27 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # the smoke run below
+    python3 chip_smoke.py --measure ROOT  # phases 0-3 and both slices timed,
+                                          # with the pslam_tpu_torch at ROOT
 
 Phases (each prints one line of evidence; any failure ends the run with a
 non-zero exit and no result line):
 
 0. identity: the card's name and power limit (nvidia-smi); no CUDA -> exit 1.
-1. build: both CUDA kernels compiled from ``pslam_tpu_torch/csrc`` by nvcc.
+1. build: both CUDA kernels compiled from ``pslam_tpu_torch/csrc`` by nvcc,
+   one nvcc each, started together; ``-Xptxas -v`` must report no spill for
+   K2.
 2. K1 (fused projection matcher) against its plain PyTorch version on the
-   card at the main-path shape (4096 map points x 1000 features) and at
-   (200, 300): every output exactly equal; median times over 20 runs.
-3. K2 (fused pose terms) against its plain version at E = 4096.
+   card, every output exactly equal (ties included, ``col_argmin`` wherever
+   the column has a candidate): the main-path shape (4096 map points x 1000
+   features), (200, 300), planted equal distances in different column slabs
+   of one row, the ragged shapes (4097, 1), (1, 1000) and (4096, 257), and
+   two launches of one input bit-identical. Times: median of 20 calls between
+   CUDA events, device time per call from torch.profiler, and the bound.
+3. K2 (fused pose terms) against its plain version within the
+   tests/test_pallas_pose.py tolerances at E = 4096 (Huber on and off), 128
+   and 8192; an all-inactive input gives H = 0, b = 0 and cost = 0 exactly;
+   two launches of one input bit-identical. Times and bound as in phase 2.
 4. the slice: ``SlamSystem(SlamConfig(use_lines=False, use_bow=False,
    use_loop_closing=False), device="cuda")`` at 640x480 with default
    capacities over 60 synthetic frames; every frame tracked, >= 3 keyframes,
@@ -34,18 +45,48 @@ The kernels' launch counters are set to 0 just before each main path
 (phases 4 and 6) and read just after. The line before the last is a JSON
 object with one entry per kernel; the last line is ``{"ok": true,
 "device": {...}}``.
+
+``--measure ROOT`` compares two trees on one card: it imports
+``pslam_tpu_torch`` from ROOT (for example a ``git archive`` of the parent
+commit unpacked under ``build/``), runs phases 0-3 with this script's
+checks, then both 60-frame slices with torch.profiler over frames 15-29,
+and prints one JSON line: the kernels' times, each slice's median ms/frame
+(frames 5+ outside the profiled window) and its device time per frame.
+Run it in turns (parent, change, change, parent) inside one call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
+
+# Peaks of one H100 SXM (NVIDIA's data sheet, at 700 W): HBM bytes/s and f32
+# operations/s outside the tensor cores. A bound is the larger of the bytes a
+# call must move (each input read once, each output written once) over the
+# first and the operations it does over the second.
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_S = 67e12
+# K1: the window and validity test of every pair (2 subtractions, 2
+# absolutes, 2 radius and 2 octave comparisons, 1 flag test) and the distance
+# of every pair that passes it (8 XOR, 8 popcounts, 8 adds). The integer
+# operations are counted at the f32 rate, which no integer unit exceeds.
+K1_PAIR_OPS = 9
+K1_CAND_OPS = 24
+# K2 per edge, counted from csrc/fused_pose.cu: transform 18, projection,
+# residuals and chi2 29, robust weight 6, Jacobian factors 10, Jacobians 26,
+# H 21 x 7, b 6 x 7, cost 2.
+K2_EDGE_OPS = 280
+KERNELS = ("fused_match", "fused_pose")
 
 
 def _identity():
@@ -76,12 +117,18 @@ def _median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def _device_ms(fn, runs: int = 20):
-    """Device time per call (ms) from torch.profiler: the summed duration of
-    the CUDA kernels and copies ``fn`` enqueues, without the host-side gaps
-    that the event-timed ``_median_ms`` includes. None when the profiler
-    records no device activity."""
+def _device_us(prof):
+    """(summed device time in us, number of device activities) of a
+    torch.profiler run: the CUDA kernels and copies, without host gaps."""
     from torch.autograd import DeviceType
+
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in events), len(events)
+
+
+def _device_ms(fn, runs: int = 20):
+    """Device time per call (ms) from torch.profiler; None when the profiler
+    records no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -90,13 +137,64 @@ def _device_ms(fn, runs: int = 20):
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
+    us, _ = _device_us(prof)
     return us / runs / 1e3 if us > 0 else None
 
 
 def _fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def _host_us(fn, calls: int = 200) -> float:
+    """Host time per call (us) of ``calls`` back-to-back calls: what the
+    wrapper and its launches cost the host, the device keeping up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def _bound(n_bytes, n_ops):
+    """(least ms the card could take, the side that sets it)."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_S, n_ops / PEAK_F32_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _timings(kernel, plain, n_bytes, n_ops):
+    bound_ms, bound_by = _bound(n_bytes, n_ops)
+    return dict(ms=_median_ms(kernel), plain_ms=_median_ms(plain),
+                device_ms=_device_ms(kernel), plain_device_ms=_device_ms(plain),
+                host_us=_host_us(kernel), bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _fmt_timings(t):
+    return (f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms (median of 20 calls); "
+            f"device time kernel {_fmt_ms(t['device_ms'])}, plain "
+            f"{_fmt_ms(t['plain_device_ms'])} per call; kernel host enqueue "
+            f"{t['host_us']:.1f} us a call; bound {t['bound_ms'] * 1e3:.4f} us "
+            f"({t['bound_by']})")
+
+
+def _phase_build(_build, check_spill):
+    """Both kernels, one nvcc each, started together."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        for fut in [pool.submit(_build.library, name) for name in KERNELS]:
+            fut.result()
+    for name in KERNELS:
+        secs, log = _build.BUILD_INFO[name]
+        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        print(f"[1 build] {name}: nvcc {secs:.1f} s; " + " | ".join(regs[:6]))
+    spills = [int(n) for n in re.findall(r"(\d+) bytes spill",
+                                         _build.BUILD_INFO["fused_pose"][1])]
+    print(f"[1 build] both kernels ready in {time.perf_counter() - t0:.1f} s; "
+          f"K2 spill bytes {spills}")
+    if check_spill and (not spills or any(spills)):
+        raise AssertionError(f"K2 spills registers (or ptxas said nothing): {spills}")
 
 
 def _match_case(na, nb, seed):
@@ -128,28 +226,76 @@ def _match_case(na, nb, seed):
     return desc_a, desc_b, uv_a, uv_b, lev_a, lev_b, val_a, val_b, radius
 
 
+def _cross_slab_case(seed):
+    """Equal distances in different 128-column slabs of one row. Rows 0-63
+    each find distance 1 twice: even rows at columns i and 256 + i, odd rows
+    at 128 + i and 256 + i after a distance 2 at column i. So the best must go
+    to the lowest of the equal columns and second == best. Rows 64 + i
+    (i % 4 == 0) copy row i, which ties the column minima across rows."""
+    rng = np.random.default_rng(seed)
+    na, nb = 512, 640
+    desc_a = rng.integers(0, 256, (na, 32), dtype=np.uint8)
+    desc_b = rng.integers(0, 256, (nb, 32), dtype=np.uint8)
+    uv_a = rng.uniform(0, 640, (na, 2)).astype(np.float32)
+    uv_b = rng.uniform(0, 640, (nb, 2)).astype(np.float32)
+    lev_a = rng.integers(0, 8, na).astype(np.int32)
+    lev_b = rng.integers(0, 8, nb).astype(np.int32)
+    for i in range(64):
+        one = desc_a[i].copy()
+        one[0] ^= 1
+        two = one.copy()
+        two[1] ^= 1
+        plant = {i: one, 256 + i: one} if i % 2 == 0 else {i: two, 128 + i: one, 256 + i: one}
+        for j, d in plant.items():
+            desc_b[j], uv_b[j], lev_b[j] = d, uv_a[i] + 0.5, lev_a[i]
+    for i in range(0, 64, 4):
+        desc_a[64 + i], uv_a[64 + i], lev_a[64 + i] = desc_a[i], uv_a[i], lev_a[i]
+    return (desc_a, desc_b, uv_a, uv_b, lev_a, lev_b, np.ones(na, bool),
+            np.ones(nb, bool), np.full(na, 12.0, np.float32))
+
+
+def _k1_inputs(fused_match, dev, case):
+    desc_a, desc_b, uv_a, uv_b, lev_a, lev_b, val_a, val_b, radius = (
+        torch.from_numpy(x).to(dev) for x in case)
+    a_par, b_par = fused_match.pack_params(
+        uv_a, radius, lev_a - 1, lev_a + 1, val_a, uv_b, lev_b, val_b)
+    return desc_a, a_par, desc_b, b_par
+
+
+def _k1_check(fused_match, args, label):
+    """Kernel vs plain on one input: every output exactly equal, col_argmin
+    wherever the column has a candidate."""
+    from pslam_tpu_torch.ops.match import BIG
+
+    got = [g.cpu().numpy() for g in fused_match.fused_projection_match(*args)]
+    ref = [r.cpu().numpy() for r in fused_match.fused_projection_match_plain(*args)]
+    for k, name in enumerate(("best", "second", "best_j", "col_min")):
+        if not np.array_equal(got[k], ref[k]):
+            raise AssertionError(f"K1 {name} differs at {label}: "
+                                 f"{int((got[k] != ref[k]).sum())} entries")
+    has = ref[3] < BIG
+    if not np.array_equal(got[4][has], ref[4][has]):
+        raise AssertionError(f"K1 col_argmin differs at {label}")
+    return got, ref
+
+
+def _k1_pairs_in_window(a_par, b_par):
+    """How many pairs pass K1's windows and flags: the distances its inputs
+    need."""
+    au, av, ar, alo, ahi = (a_par[k][:, None] for k in range(5))
+    bu, bv, bl = (b_par[k][None, :] for k in range(3))
+    mask = ((torch.abs(au - bu) <= ar) & (torch.abs(av - bv) <= ar) & (bl >= alo)
+            & (bl <= ahi) & (a_par[5][:, None] > 0.5) & (b_par[3][None, :] > 0.5))
+    return int(mask.sum())
+
+
 def _phase_k1(fused_match, dev):
     from pslam_tpu_torch.ops.match import BIG, accept_matches
 
     result = None
     for na, nb, seed in ((4096, 1000, 0), (200, 300, 1)):
-        c = [torch.from_numpy(x).to(dev) for x in _match_case(na, nb, seed)]
-        desc_a, desc_b, uv_a, uv_b, lev_a, lev_b, val_a, val_b, radius = c
-        a_par, b_par = fused_match.pack_params(
-            uv_a, radius, lev_a - 1, lev_a + 1, val_a, uv_b, lev_b, val_b
-        )
-        got = fused_match.fused_projection_match(desc_a, a_par, desc_b, b_par)
-        ref = fused_match.fused_projection_match_plain(desc_a, a_par, desc_b, b_par)
-        torch.cuda.synchronize()
-        got = [g.cpu().numpy() for g in got]
-        ref = [r.cpu().numpy() for r in ref]
-        for k, name in enumerate(("best", "second", "best_j", "col_min")):
-            if not np.array_equal(got[k], ref[k]):
-                raise AssertionError(f"K1 {name} differs at ({na}, {nb}): "
-                                     f"{int((got[k] != ref[k]).sum())} entries")
-        has = ref[3] < BIG
-        if not np.array_equal(got[4][has], ref[4][has]):
-            raise AssertionError(f"K1 col_argmin differs at ({na}, {nb})")
+        args = _k1_inputs(fused_match, dev, _match_case(na, nb, seed))
+        got, ref = _k1_check(fused_match, args, f"({na}, {nb})")
         idx_k = accept_matches(*(torch.from_numpy(x).long() for x in
                                  (got[0], got[1], got[2], got[4])), 100, 0.9).numpy()
         idx_p = accept_matches(*(torch.from_numpy(x).long() for x in
@@ -157,30 +303,55 @@ def _phase_k1(fused_match, dev):
         if not np.array_equal(idx_k, idx_p) or (idx_k >= 0).sum() == 0:
             raise AssertionError(f"K1 final matches differ at ({na}, {nb})")
         err = max(int(np.abs(got[k].astype(np.int64) - ref[k]).max()) for k in range(4))
-        def kernel():
-            return fused_match.fused_projection_match(desc_a, a_par, desc_b, b_par)
-
-        def plain():
-            return fused_match.fused_projection_match_plain(desc_a, a_par, desc_b, b_par)
-
-        ms, plain_ms = _median_ms(kernel), _median_ms(plain)
+        n_cand = _k1_pairs_in_window(args[1], args[3])
+        t = _timings(lambda: fused_match.fused_projection_match(*args),
+                     lambda: fused_match.fused_projection_match_plain(*args),
+                     (32 + 8 * 4 + 3 * 4) * na + (32 + 8 * 4 + 2 * 4) * nb,
+                     K1_PAIR_OPS * na * nb + K1_CAND_OPS * n_cand)
         print(f"[2 K1] ({na}, {nb}): outputs exactly equal, {(idx_k >= 0).sum()} matches, "
-              f"row ties {int(((got[0] == got[1]) & (got[0] < BIG)).sum())}; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20 calls); "
-              f"device time kernel {_fmt_ms(_device_ms(kernel))}, "
-              f"plain {_fmt_ms(_device_ms(plain))} per call")
+              f"row ties {int(((got[0] == got[1]) & (got[0] < BIG)).sum())}, {n_cand} "
+              f"pairs in the window; {_fmt_timings(t)}")
         if result is None:
-            result = dict(max_abs_err=float(err), ms=ms, plain_ms=plain_ms)
+            result = dict(max_abs_err=float(err), **t)
+            main_args = args
+
+    got, ref = _k1_check(fused_match, _k1_inputs(fused_match, dev, _cross_slab_case(2)),
+                         "the cross-slab case")
+    rows = np.arange(64)
+    if not ((ref[0][:64] == 1).all() and (ref[1][:64] == 1).all()
+            and np.array_equal(ref[2][:64], np.where(rows % 2 == 0, rows, 128 + rows))):
+        raise AssertionError("the cross-slab case did not plant its ties")
+    print(f"[2 K1] (512, 640) equal distances across column slabs: outputs exactly "
+          f"equal; {int(((got[0] == got[1]) & (got[0] < BIG)).sum())} rows with "
+          f"second == best, {int((got[2][:64] >= 128).sum())} best columns past slab 0")
+
+    for na, nb, seed in ((4097, 1, 3), (1, 1000, 4), (4096, 257, 5)):
+        got, _ = _k1_check(fused_match, _k1_inputs(fused_match, dev, _match_case(na, nb, seed)),
+                           f"({na}, {nb})")
+        print(f"[2 K1] ragged ({na}, {nb}): outputs exactly equal, "
+              f"{int((got[0] < BIG).sum())} rows with a candidate")
+
+    first = [o.clone() for o in fused_match.fused_projection_match(*main_args)]
+    again = fused_match.fused_projection_match(*main_args)
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError("two K1 launches of one input differ")
+    print("[2 K1] (4096, 1000): two launches bit-identical")
     return result
 
 
-def _phase_k2(fused_pose, dev):
-    from pslam_tpu_torch.geometry import Camera, se3_exp
+def _pose_inputs(fused_pose, dev, E, seed, cam, off_truth=False):
+    """(data (8, E), T (4, 4)) on ``dev``: noisy RGB-D and mono observations
+    of random points at a random pose (the generator of
+    tests/test_torch_fused_pose.py). T is that pose, or with ``off_truth``
+    the pose moved by ~0.01 rad and ~3 cm, as in the solver's first LM
+    iterations. At the truth b is a sum of noise: its entries can sit near
+    0, where the relative bar measures the f32 rounding of the residuals in
+    both versions (at E = 8192 the plain version alone is 1.8e-4 from a
+    float64 evaluation); off the truth the two agree to ~1e-6."""
+    from pslam_tpu_torch.geometry import se3_exp
     from pslam_tpu_torch.solver.pose_opt import PoseObs
 
-    rng = np.random.default_rng(0)
-    E = 4096
-    cam = Camera(fx=517.3, fy=516.5, cx=318.6, cy=255.3, bf=40.0)
+    rng = np.random.default_rng(seed)
     X = rng.uniform([-2, -2, 1], [2, 2, 8], (E, 3)).astype(np.float32)
     xi = np.r_[rng.normal(0, 0.05, 3), rng.normal(0, 0.2, 3)].astype(np.float32)
     T = se3_exp(torch.from_numpy(xi)).numpy()
@@ -195,42 +366,80 @@ def _phase_k2(fused_pose, dev):
                  valid=torch.from_numpy(rng.uniform(size=E) > 0.15).to(dev))
     data = fused_pose.pack_pose_data(po).contiguous()
     data[7] *= torch.from_numpy((rng.uniform(size=E) > 0.1).astype(np.float32)).to(dev)
-    worst = 0.0
-    for use_huber in (True, False):
-        par = fused_pose.pack_pose_params(
-            torch.from_numpy(T).to(dev), fused_pose.pose_param_tail(cam, use_huber, dev))
-        got = [g.cpu().numpy() for g in fused_pose.pose_terms(data, par)]
-        ref = [r.cpu().numpy() for r in fused_pose.pose_terms_plain(data, par)]
-        checks = (
-            ("H", got[0], ref[0], dict(rtol=2e-4, atol=1e-3)),
-            ("b", got[1], ref[1], dict(rtol=2e-4, atol=1e-2)),
-            ("cost", got[2], ref[2], dict(rtol=1e-5, atol=0)),
-            ("chi2", got[3], ref[3], dict(rtol=1e-4, atol=1e-4)),
-        )
-        rel = {}
-        for name, g, r, tol in checks:
-            np.testing.assert_allclose(g, r, err_msg=f"K2 {name} (huber={use_huber})", **tol)
-            worst = max(worst, float(np.abs(np.asarray(g, np.float64) - r).max()))
-            rel[name] = float(np.abs(np.asarray(g, np.float64) - r).max()
-                              / max(float(np.abs(r).max()), 1e-30))
-        print(f"[3 K2] E={E} huber={use_huber}: within tolerance; max relative "
-              f"error H {rel['H']:.2e} b {rel['b']:.2e} cost {rel['cost']:.2e} "
-              f"chi2 {rel['chi2']:.2e}")
-    def kernel():
-        return fused_pose.pose_terms(data, par)
-
-    def plain():
-        return fused_pose.pose_terms_plain(data, par)
-
-    ms, plain_ms = _median_ms(kernel), _median_ms(plain)
-    print(f"[3 K2] E={E}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 20 "
-          f"calls); device time kernel {_fmt_ms(_device_ms(kernel))}, plain "
-          f"{_fmt_ms(_device_ms(plain))} per call")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms)
+    if off_truth:
+        dxi = np.r_[rng.normal(0, 0.01, 3), rng.normal(0, 0.03, 3)].astype(np.float32)
+        T = se3_exp(torch.from_numpy(dxi)).numpy() @ T
+    return data, torch.from_numpy(T).to(dev)
 
 
-def _run_slice(cfg, device, n_frames, poses=None):
-    """Track ``n_frames`` of the synthetic arc; every frame must end OK."""
+def _k2_check(fused_pose, data, par, label):
+    """Kernel vs plain within the tests/test_pallas_pose.py tolerances;
+    returns (the kernel's outputs, the largest absolute difference)."""
+    got = [g.cpu().numpy() for g in fused_pose.pose_terms(data, par)]
+    ref = [r.cpu().numpy() for r in fused_pose.pose_terms_plain(data, par)]
+    checks = (
+        ("H", got[0], ref[0], dict(rtol=2e-4, atol=1e-3)),
+        ("b", got[1], ref[1], dict(rtol=2e-4, atol=1e-2)),
+        ("cost", got[2], ref[2], dict(rtol=1e-5, atol=0)),
+        ("chi2", got[3], ref[3], dict(rtol=1e-4, atol=1e-4)),
+    )
+    worst, rel = 0.0, {}
+    for name, g, r, tol in checks:
+        np.testing.assert_allclose(g, r, err_msg=f"K2 {name} ({label})", **tol)
+        worst = max(worst, float(np.abs(np.asarray(g, np.float64) - r).max()))
+        rel[name] = float(np.abs(np.asarray(g, np.float64) - r).max()
+                          / max(float(np.abs(r).max()), 1e-30))
+    print(f"[3 K2] {label}: within tolerance; max relative error H {rel['H']:.2e} "
+          f"b {rel['b']:.2e} cost {rel['cost']:.2e} chi2 {rel['chi2']:.2e}")
+    return got, worst
+
+
+def _phase_k2(fused_pose, dev):
+    from pslam_tpu_torch.geometry import Camera
+
+    cam = Camera(fx=517.3, fy=516.5, cx=318.6, cy=255.3, bf=40.0)
+
+    def params(T, use_huber):
+        return fused_pose.pack_pose_params(T, fused_pose.pose_param_tail(cam, use_huber, dev))
+
+    worst = 0.0  # at the main-path shape, E = 4096
+    for E, seed, off, hubers in ((4096, 0, False, (True, False)), (128, 1, True, (True,)),
+                                 (8192, 2, True, (True,))):
+        data, T = _pose_inputs(fused_pose, dev, E, seed, cam, off_truth=off)
+        for use_huber in hubers:
+            _, err = _k2_check(fused_pose, data, params(T, use_huber),
+                               f"E={E} huber={use_huber}" + (" off the truth" if off else ""))
+            if E == 4096:
+                worst = max(worst, err)
+        if E == 4096:
+            main = (data, params(T, False))
+
+    data, T = _pose_inputs(fused_pose, dev, 4096, 3, cam)
+    data[7] = 0.0
+    got, _ = _k2_check(fused_pose, data, params(T, True), "E=4096 all inactive")
+    if np.any(got[0] != 0) or np.any(got[1] != 0) or got[2] != 0:
+        raise AssertionError("K2 on an all-inactive input: H, b or cost is not exactly 0")
+    print("[3 K2] E=4096 all inactive: H, b and cost exactly 0")
+
+    first = [o.clone() for o in fused_pose.pose_terms(*main)]
+    again = fused_pose.pose_terms(*main)
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError("two K2 launches of one input differ")
+    print("[3 K2] E=4096: two launches bit-identical in H, b, cost and chi2")
+
+    E = main[0].shape[1]
+    t = _timings(lambda: fused_pose.pose_terms(*main),
+                 lambda: fused_pose.pose_terms_plain(*main),
+                 (8 * 4 + 4) * E + 128 * 4 + (36 + 6 + 1) * 4, K2_EDGE_OPS * E)
+    print(f"[3 K2] E={E}: {_fmt_timings(t)}")
+    return dict(max_abs_err=worst, **t)
+
+
+def _run_slice(cfg, device, n_frames, poses=None, profile=None):
+    """Track ``n_frames`` of the synthetic arc; every frame must end OK.
+    ``profile=(a, b)`` runs torch.profiler over frames a..b-1 and returns
+    their device ms and device activities per frame as the last item."""
+    from torch.profiler import ProfilerActivity
     from pslam_tpu_torch.io.synthetic import render_sequence
     from pslam_tpu_torch.pipeline.system import SlamSystem, TrackState
     from pslam_tpu_torch.utils.metrics import ate_rmse, trajectory_positions
@@ -239,20 +448,31 @@ def _run_slice(cfg, device, n_frames, poses=None):
                                               poses=poses, seed=0)
     slam = SlamSystem(cfg, device=device)
     ms, is_kf, states, centres = [], [], [], []
-    for i in range(len(grays)):
-        n_kf = slam.stats["kf_inserted"]
-        t0 = time.perf_counter()
-        T = slam.track_rgbd(grays[i], depths[i], i / 30.0)
-        if device != "cpu":
-            torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-        is_kf.append(slam.stats["kf_inserted"] > n_kf)
-        states.append(slam.state)
-        centres.append(-T[:3, :3].T @ T[:3, 3])
-        if slam.state != TrackState.OK:
-            raise AssertionError(f"frame {i} ended {slam.state.name} on {device}")
+    per_frame = None
+    with contextlib.ExitStack() as window:
+        for i in range(len(grays)):
+            if profile and i == profile[0]:
+                prof = window.enter_context(torch.profiler.profile(
+                    activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+            n_kf = slam.stats["kf_inserted"]
+            t0 = time.perf_counter()
+            T = slam.track_rgbd(grays[i], depths[i], i / 30.0)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            is_kf.append(slam.stats["kf_inserted"] > n_kf)
+            states.append(slam.state)
+            centres.append(-T[:3, :3].T @ T[:3, 3])
+            if slam.state != TrackState.OK:
+                raise AssertionError(f"frame {i} ended {slam.state.name} on {device}")
+            if profile and i == profile[1] - 1:
+                window.close()
+                us, n = _device_us(prof)
+                per_frame = (us / 1e3 / (profile[1] - profile[0]),
+                             n / (profile[1] - profile[0]))
     ate = ate_rmse(trajectory_positions(slam.poses), trajectory_positions(poses_gt))
-    return slam, np.asarray(ms), np.asarray(is_kf), states, np.asarray(centres), ate
+    return (slam, np.asarray(ms), np.asarray(is_kf), states, np.asarray(centres), ate,
+            per_frame)
 
 
 def _drive_main_path(name, cfg, n_frames, fused_match, fused_pose):
@@ -261,7 +481,7 @@ def _drive_main_path(name, cfg, n_frames, fused_match, fused_pose):
     fused_pose.LAUNCHES = 0
     run = _run_slice(cfg, "cuda", n_frames)
     launches = {"fused_match": fused_match.LAUNCHES, "fused_pose": fused_pose.LAUNCHES}
-    slam, ms, is_kf, _, _, ate = run
+    slam, ms, is_kf, _, _, ate, _ = run
     tracked = n_frames - 1  # frame 0 initializes the map
     n_kf = int(slam.map.kf_valid.sum())
     print(f"[{name}] 640x480, {n_frames} frames on the card: all OK; keyframes "
@@ -275,7 +495,7 @@ def _drive_main_path(name, cfg, n_frames, fused_match, fused_pose):
         raise AssertionError(f"{name}: too few keyframes or local BAs, or ATE >= 5 cm")
     if launches["fused_match"] < 2 * tracked or launches["fused_pose"] < 98 * tracked:
         raise AssertionError(f"{name} did not run through both kernels: {launches}")
-    return slam, launches
+    return slam, launches, tracked
 
 
 def _map_arrays(slam):
@@ -306,35 +526,74 @@ def _phase_repeat(small_lines):
         raise AssertionError("card and CPU runs of the small structural-line slice disagree")
 
 
-def main():
-    _identity()
-    dev = torch.device("cuda", 0)
-    import pslam_tpu_torch  # noqa: F401  (turns TF32 off)
-    from pslam_tpu_torch.ops import _build, fused_match, fused_pose
-    from pslam_tpu_torch.utils.config import Capacities, SlamConfig
+def _configs():
+    """(config 1, config 3, the small config 1 of phase 5)."""
     from pslam_tpu_torch.geometry import Camera
     from pslam_tpu_torch.ops.orb import OrbConfig
-
-    t0 = time.perf_counter()
-    for name in ("fused_match", "fused_pose"):
-        _build.library(name)
-    for name in ("fused_match", "fused_pose"):
-        secs, log = _build.BUILD_INFO[name]
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        print(f"[1 build] {name}: nvcc {secs:.1f} s; " + " | ".join(regs[:4]))
-    print(f"[1 build] both kernels ready in {time.perf_counter() - t0:.1f} s")
-
-    k1 = _phase_k1(fused_match, dev)
-    k2 = _phase_k2(fused_pose, dev)
-
-    cfg = SlamConfig(use_lines=False, use_bow=False, use_loop_closing=False)
-    _, launches = _drive_main_path("4 slice", cfg, 60, fused_match, fused_pose)
+    from pslam_tpu_torch.utils.config import Capacities, SlamConfig
 
     small_cam = Camera(fx=258.65, fy=258.25, cx=159.3, cy=127.65, bf=20.0,
                        width=320, height=240)
     small = SlamConfig(camera=small_cam, orb=OrbConfig(n_features=500),
                        caps=Capacities(local_points=1024), use_lines=False,
                        use_bow=False, use_loop_closing=False)
+    return (SlamConfig(use_lines=False, use_bow=False, use_loop_closing=False),
+            SlamConfig(use_bow=False, use_loop_closing=False), small)
+
+
+def _kernel_entries(k1, k2, launches, tracked):
+    entries = []
+    for name, replaces, k in (("fused_match", "pslam_tpu/ops/pallas_match.py:40", k1),
+                              ("fused_pose", "pslam_tpu/ops/pallas_pose.py:36", k2)):
+        entries.append(dict(
+            name=name, route="cuda", source=f"pslam_tpu_torch/csrc/{name}.cu",
+            replaces=replaces, launches=launches.get(name),
+            launches_per_tracked_frame=(launches[name] / tracked if tracked else None),
+            library_ms=None, **k))
+    return entries
+
+
+def measure(root):
+    """Phases 0-3 and both 60-frame slices with the package at ``root``."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    _identity()
+    dev = torch.device("cuda", 0)
+    import pslam_tpu_torch  # noqa: F401  (turns TF32 off)
+    from pslam_tpu_torch.ops import _build, fused_match, fused_pose
+
+    print(f"[measure] pslam_tpu_torch from {Path(pslam_tpu_torch.__file__).parent}")
+    _phase_build(_build, check_spill=False)
+    k1, k2 = _phase_k1(fused_match, dev), _phase_k2(fused_pose, dev)
+    cfg1, cfg3, _ = _configs()
+    window = (15, 30)
+    slices = {}
+    for name, cfg in (("config 1", cfg1), ("config 3", cfg3)):
+        slam, ms, _, _, _, ate, (dev_ms, n_dev) = _run_slice(cfg, "cuda", 60, profile=window)
+        outside = np.delete(ms, np.arange(*window))[5:]
+        slices[name] = dict(median_ms_per_frame=float(np.median(outside)),
+                            device_ms_per_frame=dev_ms, device_activities_per_frame=n_dev,
+                            ate_cm=ate * 100)
+        print(f"[measure] {name}: median {slices[name]['median_ms_per_frame']:.2f} ms/frame "
+              f"(frames 5+ outside {window[0]}-{window[1] - 1}); device {dev_ms:.3f} ms and "
+              f"{n_dev:.0f} activities a frame over frames {window[0]}-{window[1] - 1}; "
+              f"ATE {ate * 100:.3f} cm")
+    print(json.dumps({"measure": {"root": str(root), "kernels": _kernel_entries(k1, k2, {}, 0),
+                                  "slices": slices}}))
+
+
+def main():
+    _identity()
+    dev = torch.device("cuda", 0)
+    import pslam_tpu_torch  # noqa: F401  (turns TF32 off)
+    from pslam_tpu_torch.ops import _build, fused_match, fused_pose
+
+    _phase_build(_build, check_spill=True)
+    k1 = _phase_k1(fused_match, dev)
+    k2 = _phase_k2(fused_pose, dev)
+
+    cfg, cfg3, small = _configs()
+    _, launches, tracked = _drive_main_path("4 slice", cfg, 60, fused_match, fused_pose)
+
     from pslam_tpu_torch.io.synthetic import arc_trajectory
 
     poses = arc_trajectory(24)[:8]
@@ -348,8 +607,7 @@ def main():
     if g_run[3] != c_run[3] or not same_kf or diff > 0.02:
         raise AssertionError("card and CPU runs of the small slice disagree")
 
-    cfg3 = SlamConfig(use_bow=False, use_loop_closing=False)
-    slam3, launches3 = _drive_main_path("6 lines", cfg3, 60, fused_match, fused_pose)
+    slam3, launches3, tracked3 = _drive_main_path("6 lines", cfg3, 60, fused_match, fused_pose)
     m = slam3.map
     n_ml, n_il = int(m.ml_valid.sum()), int(m.il_valid.sum())
     n_reobs = int((m.il_n_obs[m.il_valid] >= 2).sum())
@@ -367,20 +625,15 @@ def main():
     _phase_repeat(dataclasses.replace(small, use_lines=True, use_lils=True,
                                       lines=LineConfig(tile=8)))
     launches = {k: launches[k] + launches3[k] for k in launches}
-
-    kernels = [
-        dict(name="fused_match", route="cuda", source="pslam_tpu_torch/csrc/fused_match.cu",
-             replaces="pslam_tpu/ops/pallas_match.py:40", launches=launches["fused_match"],
-             **k1),
-        dict(name="fused_pose", route="cuda", source="pslam_tpu_torch/csrc/fused_pose.cu",
-             replaces="pslam_tpu/ops/pallas_pose.py:36", launches=launches["fused_pose"],
-             **k2),
-    ]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": _kernel_entries(k1, k2, launches, tracked + tracked3)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--measure":
+        sys.exit(measure(sys.argv[2]))
+    if len(sys.argv) != 1:
+        raise SystemExit(__doc__)
     sys.exit(main())

@@ -4,15 +4,17 @@ The port mirrors ``pslam_tpu``'s layout (``geometry``, ``ops``, ``solver``,
 ``models``, ``pipeline``, ``io``, ``utils``) module for module, so each
 function's counterpart is easy to find. It imports torch and numpy only.
 
-This slice covers the points-only RGB-D main path (BASELINE config 1:
-``SlamConfig(use_lines=False, use_bow=False, use_loop_closing=False)``)
-driven through ``SlamSystem.track_rgbd``. The two TPU Pallas kernels on that
-path are hand-written CUDA kernels for Hopper (``csrc/``), launched by
+The port covers RGB-D tracking with points, map lines and structural lines
+(BASELINE configs 1-3, ``use_bow=False, use_loop_closing=False``) driven
+through ``SlamSystem.track_rgbd``. The two TPU Pallas kernels on that path
+are hand-written CUDA kernels for Hopper (``csrc/``), launched by
 ``ops/fused_match.py`` and ``ops/fused_pose.py``; on CPU tensors their
 wrappers run the plain PyTorch versions.
 
-Device handling: ``SlamSystem(cfg, device=...)`` carries an explicit device;
-every other function computes on the device of the tensors it is given.
+Device handling: ``SlamSystem(cfg)`` runs on the CUDA card and raises
+``RuntimeError`` where there is none; ``SlamSystem(cfg, device="cpu")`` asks
+for the CPU. Every other function computes on the device of the tensors it
+is given.
 """
 
 import torch as _torch

@@ -8,25 +8,49 @@
 // analytic 3x6 SE3 Jacobians, and returns the 6x6 normal matrix H,
 // b = -sum w J^T r, the robust cost sum w r^2 and chi2 for every edge.
 //
-// What bounds it on this card: one call reads 8 x 4096 floats (128 KB) and
-// does ~100 flops per edge, so it is latency-bound: the pose solve calls it
-// 49 times in a dependent chain, and each call is a launch plus a block-wide
-// reduction. The TPU kernel formed H, b and the cost from one S S^T product
-// on the MXU; that is a matrix-unit device and is not carried over.
+// What bounds it on this card: one call at E = 4096 reads 8 x 4096 floats
+// (128 KB) and writes 16 KB of chi2, ~0.04 us at the card's memory rate, and
+// does ~265 flops per edge (~0.02 us of f32). So its time is latency: the
+// load of one edge, the chain of its arithmetic and a 28-way reduction. The
+// pose solve calls it 49 times in a dependent chain. The TPU kernel formed
+// H, b and the cost from one S S^T product on the MXU; that is a matrix-unit
+// design and is not carried over.
 //
-// Design: a single block of 512 threads strides over the edges; each thread
-// accumulates the 21 upper-triangle entries of H, the 6 entries of b and the
-// cost in registers (f32), then a fixed warp-shuffle tree and a shared-memory
-// pass over the 16 warps reduce them in a fixed order, so the result is
-// deterministic (no atomics). The formulas follow pallas_pose.py:53-97.
+// Design: one thread block cluster of 8 blocks x 512 threads (8 SMs). At
+// E = 4096 each thread owns one edge; larger E strides. Each thread keeps the
+// 21 upper-triangle entries of H, the 6 of b and the cost in registers. A
+// warp reduce-scatter (5 halving steps, 31 shuffles) leaves lane k with the
+// warp's sum k; one pass over the 16 warps gives the block's row of 28 sums in
+// shared memory; after a cluster barrier, block 0 reads the 8 rows through
+// distributed shared memory in rank order and writes H, b and the cost. Every
+// sum is taken in an order fixed by E alone: no atomics, no global scratch,
+// one launch, bit-reproducible. The formulas follow pallas_pose.py:53-97.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSums = 28;  // 21 (H upper triangle) + 6 (b) + 1 (cost)
+constexpr int kBlocks = 8;  // one cluster, the portable cluster size
+constexpr int kSums = 28;   // 21 (H upper triangle) + 6 (b) + 1 (cost)
+
+// Sum v[0..2*half) of every lane of the warp so that lane bit `half` picks
+// the half it keeps: afterwards v[0..half) holds this lane's kept half,
+// summed with the partner's.
+template <int half>
+__device__ __forceinline__ void halve(float (&v)[32], int lane) {
+  const bool upper = lane & half;
+#pragma unroll
+  for (int k = 0; k < half; ++k) {
+    const float keep = upper ? v[k + half] : v[k];
+    const float send = upper ? v[k] : v[k + half];
+    v[k] = keep + __shfl_xor_sync(0xffffffffu, send, half);
+  }
+}
 
 // par: [T_cw row-major (16), fx, fy, cx, cy, bf, use_huber, 0...] (128)
 // data rows: [X0, X1, X2, obs_u, obs_v, obs_ur, inv_sigma2, active] (8, E)
@@ -35,6 +59,8 @@ __global__ void __launch_bounds__(kThreads) pose_terms(
     float* __restrict__ H_out, float* __restrict__ b_out,
     float* __restrict__ cost_out, float* __restrict__ chi2_out) {
   __shared__ float s_part[kWarps][kSums];
+  __shared__ float s_row[kSums];
+  cg::cluster_group cluster = cg::this_cluster();
 
   const float R00 = par[0], R01 = par[1], R02 = par[2], t0 = par[3];
   const float R10 = par[4], R11 = par[5], R12 = par[6], t1 = par[7];
@@ -44,11 +70,13 @@ __global__ void __launch_bounds__(kThreads) pose_terms(
   const float delta_mono = sqrtf(5.991f);
   const float delta_stereo = sqrtf(7.815f);
 
-  float acc[kSums];
+  // 28 sums, padded to 32 for the reduce-scatter.
+  float acc[32];
 #pragma unroll
-  for (int k = 0; k < kSums; ++k) acc[k] = 0.f;
+  for (int k = 0; k < 32; ++k) acc[k] = 0.f;
 
-  for (int e = threadIdx.x; e < E; e += kThreads) {
+#pragma unroll 1
+  for (int e = blockIdx.x * kThreads + threadIdx.x; e < E; e += kBlocks * kThreads) {
     const float X0 = data[0 * E + e], X1 = data[1 * E + e], X2 = data[2 * E + e];
     const float obs_u = data[3 * E + e], obs_v = data[4 * E + e];
     const float obs_r = data[5 * E + e], inv_s2 = data[6 * E + e];
@@ -100,21 +128,27 @@ __global__ void __launch_bounds__(kThreads) pose_terms(
     acc[27] += w * rr;
   }
 
-  // Fixed-order reduction: warp shuffle tree, then warp 0 over the warps.
+  // Warp reduce-scatter: lane k ends with the warp's sum k in acc[0].
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < kSums; ++k) {
-    float s = acc[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) s_part[warp][k] = s;
-  }
+  halve<16>(acc, lane);
+  halve<8>(acc, lane);
+  halve<4>(acc, lane);
+  halve<2>(acc, lane);
+  halve<1>(acc, lane);
+  if (lane < kSums) s_part[warp][lane] = acc[0];
   __syncthreads();
   if (threadIdx.x < kSums) {
     float s = 0.f;
     for (int w = 0; w < kWarps; ++w) s += s_part[w][threadIdx.x];
+    s_row[threadIdx.x] = s;
+  }
+  cluster.sync();  // every block's row is written
+
+  if (cluster.block_rank() == 0 && threadIdx.x < kSums) {
     const int k = threadIdx.x;
+    float s = 0.f;
+    for (int r = 0; r < kBlocks; ++r) s += cluster.map_shared_rank(s_row, r)[k];
     if (k < 21) {
       // Upper-triangle index k -> (i, j); write both halves of H.
       int i = 0, rem = k;
@@ -131,17 +165,31 @@ __global__ void __launch_bounds__(kThreads) pose_terms(
       cost_out[0] = s;
     }
   }
+  cluster.sync();  // keep every block's shared row alive until block 0 has read it
 }
 
 }  // namespace
 
 // data (8, E) f32, par (128,) f32 -> H (6, 6), b (6,), cost (1,), chi2 (E,) f32.
-// Returns cudaGetLastError() after the launch.
+// One cluster of kBlocks blocks. Returns the launch's error code (0 on success).
 extern "C" int pslam_fused_pose(const void* data, const void* par, int E, void* H,
                                 void* b, void* cost, void* chi2, void* stream) {
-  pose_terms<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(data), static_cast<const float*>(par), E,
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kBlocks, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kBlocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, pose_terms, static_cast<const float*>(data), static_cast<const float*>(par), E,
       static_cast<float*>(H), static_cast<float*>(b), static_cast<float*>(cost),
       static_cast<float*>(chi2));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,7 +4,9 @@ Each kernel file exposes a plain C interface and is compiled by ``nvcc`` for
 Hopper (``sm_90a``) into a shared library that ``ctypes`` loads; nothing
 includes PyTorch's headers, so a build takes seconds. Libraries go to
 ``build/pslam_tpu_torch/`` at the repository root (git-ignored), keyed by a
-hash of the source and the flags, and are built at first use.
+hash of the source and the flags, and are built at first use. Each kernel
+has its own lock, so different kernels can build at once from several
+threads.
 """
 
 from __future__ import annotations
@@ -27,7 +29,8 @@ NVCC_FLAGS = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
-_lock = threading.Lock()
+_locks_guard = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 # name -> (seconds spent building, or 0.0 when loaded from the cache;
 # nvcc's -Xptxas=-v report)
@@ -49,7 +52,9 @@ def _nvcc() -> str:
 
 def library(name: str) -> ctypes.CDLL:
     """Load ``csrc/<name>.cu`` as a shared library, compiling it if needed."""
-    with _lock:
+    with _locks_guard:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _libs:
             return _libs[name]
         src = CSRC / f"{name}.cu"
@@ -81,6 +86,20 @@ def library(name: str) -> ctypes.CDLL:
         BUILD_INFO[name] = (seconds, log_path.read_text() if log_path.exists() else "")
         _libs[name] = lib
         return lib
+
+
+def bind(name: str, argtypes: dict[str, list]) -> dict[str, ctypes._CFuncPtr]:
+    """Load ``csrc/<name>.cu`` and declare its C functions: name -> argtypes
+    (``ctypes.c_void_p`` for each pointer and the stream, ``ctypes.c_int``
+    for an int); every function returns an int."""
+    lib = library(name)
+    fns = {}
+    for fn_name, types in argtypes.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = types
+        fn.restype = ctypes.c_int
+        fns[fn_name] = fn
+    return fns
 
 
 def stream_ptr(tensor) -> int:

@@ -32,20 +32,22 @@ from pslam_tpu_torch.ops.match import (
 # CPU path does not count.
 LAUNCHES = 0
 
-_c_fn = None
+# The C interface of csrc/fused_match.cu: function name -> argtypes.
+ARGTYPES = {
+    "pslam_fused_match": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                         + [ctypes.c_void_p] * 8,
+    "pslam_fused_match_slabs": [ctypes.c_int],
+}
+
+_c_fns = None
 
 
 def _kernel():
-    global _c_fn
-    if _c_fn is None:
-        lib = _build.library("fused_match")
-        fn = lib.pslam_fused_match
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [
-            ctypes.c_void_p] * 7
-        fn.restype = ctypes.c_int
-        _c_fn = fn
-    return _c_fn
+    global _c_fns
+    if _c_fns is None:
+        _c_fns = _build.bind("fused_match", ARGTYPES)
+    return _c_fns
 
 
 def pack_params(uv_a, radius_a, lev_lo_a, lev_hi_a, valid_a, uv_b, level_b, valid_b):
@@ -103,13 +105,17 @@ def fused_projection_match(desc_a, a_par, desc_b, b_par):
     best_j = torch.empty(Na, dtype=torch.int32, device=dev)
     col_min = torch.empty(Nb, dtype=torch.int32, device=dev)
     col_arg = torch.empty(Nb, dtype=torch.int32, device=dev)
+    fns = _kernel()
+    # Scratch: per column slab, each row's (best, second, best column).
+    slabs = fns["pslam_fused_match_slabs"](Nb)
+    row_part = torch.empty((3, slabs, Na), dtype=torch.int32, device=dev)
     col_key = torch.empty(Nb, dtype=torch.int64, device=dev)
-    rc = _kernel()(
+    rc = fns["pslam_fused_match"](
         desc_a.data_ptr(), a_par.data_ptr(), Na,
         desc_b.data_ptr(), b_par.data_ptr(), Nb,
         best.data_ptr(), second.data_ptr(), best_j.data_ptr(),
-        col_min.data_ptr(), col_arg.data_ptr(), col_key.data_ptr(),
-        _build.stream_ptr(desc_a),
+        col_min.data_ptr(), col_arg.data_ptr(), row_part.data_ptr(),
+        col_key.data_ptr(), _build.stream_ptr(desc_a),
     )
     if rc != 0:
         raise RuntimeError(f"fused_match kernel launch failed: CUDA error {rc}")

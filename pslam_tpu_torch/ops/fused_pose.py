@@ -26,18 +26,19 @@ from pslam_tpu_torch.ops import _build
 # CPU path does not count.
 LAUNCHES = 0
 
+# The C interface of csrc/fused_pose.cu: function name -> argtypes.
+ARGTYPES = {
+    "pslam_fused_pose": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                        + [ctypes.c_void_p] * 5,
+}
+
 _c_fn = None
 
 
 def _kernel():
     global _c_fn
     if _c_fn is None:
-        lib = _build.library("fused_pose")
-        fn = lib.pslam_fused_pose
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [
-            ctypes.c_void_p] * 5
-        fn.restype = ctypes.c_int
-        _c_fn = fn
+        _c_fn = _build.bind("fused_pose", ARGTYPES)["pslam_fused_pose"]
     return _c_fn
 
 

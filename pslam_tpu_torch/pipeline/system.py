@@ -92,7 +92,10 @@ def _np(t):
 
 
 class SlamSystem:
-    def __init__(self, cfg: SlamConfig | None = None, device="cpu"):
+    def __init__(self, cfg: SlamConfig | None = None, device="cuda"):
+        """Runs on the card unless ``device`` asks for another; raises
+        ``NotImplementedError`` for a configuration the port does not cover
+        and ``RuntimeError`` for a CUDA device where CUDA is not available."""
         self.cfg = cfg or SlamConfig()
         c = self.cfg
         unsupported = [
@@ -110,6 +113,11 @@ class SlamSystem:
                 f"distributed=False); got {', '.join(unsupported)}"
             )
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "SlamSystem runs on the CUDA device by default, and CUDA is not "
+                "available here; pass device='cpu' to run on the CPU"
+            )
         self.map = MapState(self.cfg)
         self.state = TrackState.NO_IMAGES_YET
         self.frame_id = 0
