@@ -40,10 +40,32 @@ non-zero exit and no result line):
    twice on the card and once on the CPU: the two card runs bit-identical
    (poses and every map array), card vs CPU the same states and keyframes
    with camera centres within 2 cm.
+8. relocalization: the kidnap of tests/test_relocalization.py on the card
+   (``SlamConfig(use_lines=False)`` with BoW, ``reset_if_lost_with_kfs=0``,
+   ``kf_max_interval=3``, 640x480): 10 arc frames, then the tracker is
+   declared LOST and shown frame 3 again. One relocalization, the centre
+   within 5 cm of the truth, the next frame OK, and both kernels launched by
+   the relocalization call.
+9. loop closing, card vs CPU: the hand-built drifted world of
+   tests/test_loop_closing.py (built in numpy with the port's ``se3_exp`` and
+   ``project``) through ``LoopCloser.on_new_keyframe``, twice on the card and
+   once on the CPU. The card runs bit-identical (poses and every map array),
+   the same closing keyframe and stats on card and CPU, keyframe poses
+   within 1e-3, the closing keyframe within 0.03 of its true pose, the fused
+   points' median distance to cloud A below 0.05 m.
+10. BASELINE config 4: ``SlamSystem(SlamConfig())`` (points, lines, LILs,
+   BoW, loop closing and global BA) at full width on the JAX package's loop
+   circuit (160 frames of ``loop_trajectory`` in a ``ClosedRoom``, as
+   scripts/eval_loop_tpu.py builds it) through ``track_rgbd``: every frame
+   OK, at least one loop handled (detected, then corrected or fused), one
+   global BA per correction, corrected ATE < 5 cm. Prints the times (median
+   ms/frame, keyframe frames, each loop event), keyframes, online and
+   corrected ATE, peak device memory and launches per tracked frame.
 
 The kernels' launch counters are set to 0 just before each main path
-(phases 4 and 6) and read just after. The line before the last is a JSON
-object with one entry per kernel; the last line is ``{"ok": true,
+(phases 4, 6 and 10, and the relocalization call of phase 8) and read just
+after. The line before the last is a JSON object with one entry per kernel,
+its launches summed over those paths; the last line is ``{"ok": true,
 "device": {...}}``.
 
 ``--measure ROOT`` compares two trees on one card: it imports
@@ -526,6 +548,274 @@ def _phase_repeat(small_lines):
         raise AssertionError("card and CPU runs of the small structural-line slice disagree")
 
 
+def _phase_reloc(device, fused_match, fused_pose, cam=None):
+    """The kidnap: 10 arc frames, LOST, frame 3 again, then frame 4. Returns
+    the kernels' launches during the relocalization call."""
+    from pslam_tpu_torch.io.synthetic import render_sequence
+    from pslam_tpu_torch.pipeline.system import SlamSystem, TrackState
+    from pslam_tpu_torch.utils.config import SlamConfig
+
+    cfg = SlamConfig(use_lines=False)
+    if cam is not None:
+        cfg = dataclasses.replace(cfg, camera=cam)
+    cfg = dataclasses.replace(cfg, tracking=dataclasses.replace(
+        cfg.tracking, reset_if_lost_with_kfs=0, kf_max_interval=3))
+    grays, depths, poses_gt = render_sequence(cfg.camera, n_frames=10, seed=0)
+    slam = SlamSystem(cfg, device=device)
+    for i in range(10):
+        slam.track_rgbd(grays[i], depths[i], i / 30.0)
+    if slam.state != TrackState.OK or slam.map.n_kf < 3:
+        raise AssertionError("8 reloc: the map before the kidnap is not tracked")
+    slam.state = TrackState.LOST
+    fused_match.LAUNCHES = 0
+    fused_pose.LAUNCHES = 0
+    t0 = time.perf_counter()
+    T = slam.track_rgbd(grays[3], depths[3], 11 / 30.0)
+    _sync(device)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {"fused_match": fused_match.LAUNCHES, "fused_pose": fused_pose.LAUNCHES}
+    state = slam.state
+    err = float(np.linalg.norm(_centre(T) - _centre(poses_gt[3])))
+    slam.track_rgbd(grays[4], depths[4], 12 / 30.0)
+    print(f"[8 reloc] {cfg.camera.width}x{cfg.camera.height}, {slam.map.n_kf} keyframes: "
+          f"state {state.name}, relocs {slam.stats.get('relocs', 0)}, centre "
+          f"{err * 100:.3f} cm from the truth, next frame {slam.state.name}; the "
+          f"relocalizing frame took {ms:.1f} ms; launches {launches}")
+    if state != TrackState.OK or slam.stats.get("relocs", 0) != 1 or not err < 0.05:
+        raise AssertionError("8 reloc: no relocalization, or its centre is >= 5 cm off")
+    if slam.state != TrackState.OK:
+        raise AssertionError("8 reloc: the frame after the relocalization is not OK")
+    if device != "cpu" and (launches["fused_match"] < 1 or launches["fused_pose"] < 1):
+        raise AssertionError(f"8 reloc: the relocalization did not launch both kernels: "
+                             f"{launches}")
+    return launches
+
+
+def _drifted_world(device):
+    """tests/test_loop_closing.py's drifted world on ``device``: KFs 0-2 see
+    cloud A, 3-5 B, 6-8 C, and 9-13 A again through drifted duplicate
+    points and poses. Returns (slam, true poses)."""
+    from pslam_tpu_torch.geometry import project, se3_exp
+    from pslam_tpu_torch.ops.orb import OrbConfig
+    from pslam_tpu_torch.pipeline.system import SlamSystem
+    from pslam_tpu_torch.utils.config import Capacities, SlamConfig
+
+    def exp(xi):
+        return se3_exp(torch.from_numpy(np.asarray(xi, np.float32))).numpy()
+
+    cfg = SlamConfig(orb=OrbConfig(n_features=256), use_lines=False, bow_k=8, bow_levels=3,
+                     caps=Capacities(max_keyframes=32, max_map_points=4096, local_points=512,
+                                     gba_cams=32, gba_free=16, gba_points=1024,
+                                     gba_edges=4096))
+    slam = SlamSystem(cfg, device=device)
+    m, cam, N, P_CLOUD = slam.map, cfg.camera, cfg.orb.capacity, 150
+    rng = np.random.default_rng(0)
+    clouds = [rng.uniform([-1.5, -1.0, 2.0 + 2.5 * ci], [1.5, 1.0, 4.0 + 2.5 * ci],
+                          (P_CLOUD, 3)).astype(np.float32) for ci in range(3)]
+    descs = [rng.integers(0, 256, (P_CLOUD, 32), dtype=np.uint8) for _ in range(3)]
+    segments = [0, 0, 0, 1, 1, 1, 2, 2, 2, 0, 0, 0, 0, 0]
+    poses_true = []
+    for k, ci in enumerate(segments):
+        off = rng.normal(0, 0.08, 3).astype(np.float32)
+        T = exp(np.r_[rng.normal(0, 0.02, 3), [0.15 * (k % 3) + off[0], off[1], off[2]]])
+        T[2, 3] -= 2.5 * ci
+        poses_true.append(T.astype(np.float32))
+    W = exp([0.02, -0.03, 0.025, 0.25, -0.18, 0.22])
+    W_inv = np.linalg.inv(W)
+    cloud_ids = {}
+    for k, ci in enumerate(segments):
+        revisit = k >= 9
+        X_w, T_cw = clouds[ci], poses_true[k]
+        if revisit:
+            X_w = (X_w @ W[:3, :3].T) + W[:3, 3]
+            T_cw = (poses_true[k] @ W_inv).astype(np.float32)
+        Xc = X_w @ T_cw[:3, :3].T + T_cw[:3, 3]
+        uv = project(cam, torch.from_numpy(np.ascontiguousarray(Xc, np.float32))).numpy()
+        z = Xc[:, 2]
+        ok = ((z > 0.1) & (uv[:, 0] >= 0) & (uv[:, 0] < cam.width) & (uv[:, 1] >= 0)
+              & (uv[:, 1] < cam.height))
+        nsel = min(int(ok.sum()), N)
+        sel = np.flatnonzero(ok)[:nsel]
+        uv_f = np.zeros((N, 2), np.float32)
+        ur_f = np.full(N, -1.0, np.float32)
+        depth_f = np.zeros(N, np.float32)
+        desc_f = np.zeros((N, 32), np.uint8)
+        valid_f = np.zeros(N, bool)
+        uv_f[:nsel], depth_f[:nsel] = uv[sel], z[sel]
+        ur_f[:nsel] = uv[sel, 0] - cam.bf / z[sel]
+        desc_f[:nsel], valid_f[:nsel] = descs[ci][sel], True
+        kf = m.add_keyframe(k, float(k), T_cw, uv_f, ur_f, np.zeros(N, np.int32),
+                            np.zeros(N, np.float32), desc_f, valid_f, depth_f,
+                            np.full(N, -1, np.int32))
+        if (ci, revisit) not in cloud_ids:
+            ids = m.create_points_from_depth(kf, np.arange(nsel), X_w[sel].astype(np.float32))
+            table = np.full(P_CLOUD, -1, np.int32)
+            table[sel] = ids
+            cloud_ids[(ci, revisit)] = table
+        else:
+            table = cloud_ids[(ci, revisit)]
+            have = table[sel] >= 0
+            m.kf_feat_mp[kf, np.arange(nsel)[have]] = table[sel][have]
+            np.add.at(m.mp_n_obs, table[sel][have], 1)
+            m._update_covisibility(kf)
+        slam.kf_db.add(kf, *slam.kf_db.compute_bow(desc_f, valid_f))
+    return slam, poses_true
+
+
+def _close_loop(device):
+    slam, poses_true = _drifted_world(device)
+    closed_at = next((kf for kf in (9, 10, 11, 12, 13)
+                      if slam.loop_closer.on_new_keyframe(kf)), None)
+    return slam, poses_true, closed_at
+
+
+def _phase_loop(devices=("cuda", "cuda", "cpu")):
+    """The drifted world closed twice on the card and once on the CPU."""
+    t0 = time.perf_counter()
+    (g1, truth, at1), (g2, _, at2), (c, _, atc) = (_close_loop(d) for d in devices)
+    m1, m2, mc = _map_arrays(g1), _map_arrays(g2), _map_arrays(c)
+    differ = [k for k in m1 if not np.array_equal(m1[k], m2[k])]
+    K = g1.map.n_kf
+    pose_diff = float(np.abs(g1.map.kf_pose[:K] - c.map.kf_pose[:K]).max())
+    s1, sc = g1.loop_closer.stats, c.loop_closer.stats
+    stats_differ = [k for k in set(s1) | set(sc)
+                    if isinstance(s1.get(k), float) and abs(s1[k] - sc.get(k, np.inf)) > 1e-3
+                    or not isinstance(s1.get(k), float) and s1.get(k) != sc.get(k)]
+    m = g1.map
+    err = float(np.abs(m.kf_pose[at1] - truth[at1]).max()) if at1 is not None else np.inf
+    median = np.inf
+    if at1 is not None:
+        mp = m.kf_feat_mp[at1]
+        pos = m.mp_pos[mp[mp >= 0]]
+        orig = m.mp_pos[m.mp_valid & (m.mp_first_kf == 0)]
+        median = float(np.median(np.linalg.norm(pos[:, None] - orig[None], axis=-1).min(1)))
+    print(f"[9 loop] drifted world, {devices}: closed at {at1}, {at2}, {atc}; card runs "
+          f"map arrays differing {differ}; stats card {s1}, cpu {sc}; card vs cpu "
+          f"keyframe poses within {pose_diff:.2e}, points within "
+          f"{float(np.abs(m1['mp_pos'][m.mp_valid] - mc['mp_pos'][m.mp_valid]).max()):.2e} m; "
+          f"closing keyframe {err:.4f} from its true pose, fused points' median distance "
+          f"to cloud A {median * 100:.3f} cm; {time.perf_counter() - t0:.1f} s")
+    if at1 is None or at1 != at2 or at1 != atc:
+        raise AssertionError("9 loop: no closure, or not at the same keyframe")
+    if differ:
+        raise AssertionError(f"9 loop: two card runs differ in {differ}")
+    if stats_differ or pose_diff > 1e-3:
+        raise AssertionError(f"9 loop: card and CPU disagree (stats {stats_differ}, "
+                             f"poses {pose_diff})")
+    if not (err < 0.03 and median < 0.05):
+        raise AssertionError("9 loop: the loop was not corrected")
+
+
+def _phase_config4(device, fused_match, fused_pose, n_frames=160, cfg=None):
+    """BASELINE config 4 on the loop circuit; returns (launches, tracked)."""
+    from pslam_tpu_torch.io.synthetic import ClosedRoom, loop_trajectory, render_sequence
+    from pslam_tpu_torch.pipeline import loop_closing
+    from pslam_tpu_torch.pipeline.system import SlamSystem, TrackState
+    from pslam_tpu_torch.utils.config import SlamConfig
+    from pslam_tpu_torch.utils.metrics import ate_rmse, trajectory_positions
+
+    cfg = cfg or SlamConfig()
+    t0 = time.perf_counter()
+    grays, depths, poses_gt = render_sequence(
+        cfg.camera, poses=loop_trajectory(n_frames, loops=1.0),
+        room=ClosedRoom(depth=5.0, half_w=3.0, half_h=2.0, seed=3))
+    render_s = time.perf_counter() - t0
+    slam = SlamSystem(cfg, device=device)
+    closer = slam.loop_closer
+    # Wall ms of every call of the loop closer's stages; a loop event is a
+    # call of on_new_keyframe that handled a loop.
+    stage_ms = {}
+    run_global_ba = loop_closing.run_global_ba
+    for owner, name in ((closer, "on_new_keyframe"), (closer, "compute_sim3"),
+                        (closer, "_run_essential_graph"), (loop_closing, "run_global_ba")):
+        _time_calls(owner, name, device, stage_ms.setdefault(name, []))
+    try:
+        if device != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        fused_match.LAUNCHES = 0
+        fused_pose.LAUNCHES = 0
+        ms, is_kf, est = [], [], []
+        for i in range(n_frames):
+            n_kf = slam.stats["kf_inserted"]
+            t = time.perf_counter()
+            est.append(slam.track_rgbd(grays[i], depths[i], i / 30.0))
+            _sync(device)
+            ms.append((time.perf_counter() - t) * 1e3)
+            is_kf.append(slam.stats["kf_inserted"] > n_kf)
+            if slam.state != TrackState.OK:
+                raise AssertionError(f"10 config 4: frame {i} ended {slam.state.name}")
+        launches = {"fused_match": fused_match.LAUNCHES, "fused_pose": fused_pose.LAUNCHES}
+        corrected = slam.poses  # flushes; rows chained to the corrected keyframes
+        peak = torch.cuda.max_memory_allocated() if device != "cpu" else None
+        if slam.loop_closer is not closer:
+            raise AssertionError("10 config 4: the system was reset")
+        gt = trajectory_positions(poses_gt)
+        ate = ate_rmse(trajectory_positions(corrected), gt)
+        online = ate_rmse(trajectory_positions(np.stack(est)), gt)
+        ms, is_kf = np.asarray(ms), np.asarray(is_kf)
+        events = [(t, out) for t, out in stage_ms["on_new_keyframe"] if out]
+        lc = closer.stats
+        tracked = n_frames - 1
+        peak_txt = "not measured (CPU)" if peak is None else f"{peak / 2**20:.1f} MiB"
+        print(f"[10 config 4] {cfg.camera.width}x{cfg.camera.height}, {n_frames} frames of the "
+              f"loop circuit on {device} (rendered in {render_s:.1f} s): all OK; median "
+              f"{np.median(ms[5:]):.2f} ms/frame (frames 5+), keyframe frames mean "
+              f"{ms[is_kf][1:].mean():.2f} ms over {int(is_kf[1:].sum())}, other frames median "
+              f"{np.median(ms[1:][~is_kf[1:]]):.2f} ms; loop events "
+              f"{[round(t, 1) for t, _ in events]} ms, of them Sim3 {_ms_list(stage_ms['compute_sim3'])}, essential graph "
+              f"{_ms_list(stage_ms['_run_essential_graph'])}, global BA "
+              f"{_ms_list(stage_ms['run_global_ba'])} ms; loop checks at keyframes without a loop "
+              f"{np.mean([t for t, out in stage_ms['on_new_keyframe'] if not out]):.2f} ms mean; "
+              f"keyframes "
+              f"{int(slam.map.kf_valid.sum())} (inserted {slam.stats['kf_inserted']}); loop "
+              f"stats {lc}; ATE online {online * 100:.3f} cm, corrected {ate * 100:.3f} cm; "
+              f"peak device memory {peak_txt}; launches {launches} "
+              f"({launches['fused_match'] / tracked:.2f} and "
+              f"{launches['fused_pose'] / tracked:.2f} per tracked frame)")
+        n_fuse_only = lc.get("fuse_only", 0) // 2  # counted twice a call, as in pslam_tpu
+        if lc["detected"] < 1 or lc["closed"] + lc.get("fuse_only", 0) < 1:
+            raise AssertionError("10 config 4: no loop handled")
+        if lc["gba_runs"] != lc["closed"] - n_fuse_only:
+            raise AssertionError("10 config 4: a loop correction without its global BA")
+        if not ate < 0.05:
+            raise AssertionError(f"10 config 4: corrected ATE {ate * 100:.3f} cm >= 5 cm")
+        if device != "cpu" and (launches["fused_match"] < 2 * tracked
+                                or launches["fused_pose"] < 98 * tracked):
+            raise AssertionError(f"10 config 4 did not run through both kernels: {launches}")
+        return launches, tracked
+    finally:
+        loop_closing.run_global_ba = run_global_ba
+
+
+def _time_calls(owner, name, device, log):
+    """Replace ``owner.name`` by a wrapper that appends (wall ms, result) of
+    every call to ``log``, the device synchronized on both sides."""
+    fn = getattr(owner, name)
+
+    def timed(*args, **kw):
+        _sync(device)
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        _sync(device)
+        log.append(((time.perf_counter() - t) * 1e3, out))
+        return out
+
+    setattr(owner, name, timed)
+
+
+def _ms_list(log):
+    return [round(t, 1) for t, _ in log]
+
+
+def _sync(device):
+    if device != "cpu":
+        torch.cuda.synchronize()
+
+
+def _centre(T):
+    return -T[:3, :3].T @ T[:3, 3]
+
+
 def _configs():
     """(config 1, config 3, the small config 1 of phase 5)."""
     from pslam_tpu_torch.geometry import Camera
@@ -541,14 +831,14 @@ def _configs():
             SlamConfig(use_bow=False, use_loop_closing=False), small)
 
 
-def _kernel_entries(k1, k2, launches, tracked):
+def _kernel_entries(k1, k2, launches, per_frame):
     entries = []
     for name, replaces, k in (("fused_match", "pslam_tpu/ops/pallas_match.py:40", k1),
                               ("fused_pose", "pslam_tpu/ops/pallas_pose.py:36", k2)):
         entries.append(dict(
             name=name, route="cuda", source=f"pslam_tpu_torch/csrc/{name}.cu",
             replaces=replaces, launches=launches.get(name),
-            launches_per_tracked_frame=(launches[name] / tracked if tracked else None),
+            launches_per_tracked_frame=per_frame.get(name),
             library_ms=None, **k))
     return entries
 
@@ -577,7 +867,7 @@ def measure(root):
               f"(frames 5+ outside {window[0]}-{window[1] - 1}); device {dev_ms:.3f} ms and "
               f"{n_dev:.0f} activities a frame over frames {window[0]}-{window[1] - 1}; "
               f"ATE {ate * 100:.3f} cm")
-    print(json.dumps({"measure": {"root": str(root), "kernels": _kernel_entries(k1, k2, {}, 0),
+    print(json.dumps({"measure": {"root": str(root), "kernels": _kernel_entries(k1, k2, {}, {}),
                                   "slices": slices}}))
 
 
@@ -624,8 +914,15 @@ def main():
 
     _phase_repeat(dataclasses.replace(small, use_lines=True, use_lils=True,
                                       lines=LineConfig(tile=8)))
-    launches = {k: launches[k] + launches3[k] for k in launches}
-    print(json.dumps({"kernels": _kernel_entries(k1, k2, launches, tracked + tracked3)}))
+    launches8 = _phase_reloc("cuda", fused_match, fused_pose)
+    _phase_loop()
+    launches10, tracked10 = _phase_config4("cuda", fused_match, fused_pose)
+    # Launches: every path summed; per tracked frame: phases 4, 6 and 10.
+    on_frames = {k: launches[k] + launches3[k] + launches10[k] for k in launches}
+    n_tracked = tracked + tracked3 + tracked10
+    print(json.dumps({"kernels": _kernel_entries(
+        k1, k2, {k: on_frames[k] + launches8[k] for k in launches},
+        {k: v / n_tracked for k, v in on_frames.items()})}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

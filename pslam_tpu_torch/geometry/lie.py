@@ -1,18 +1,22 @@
 """Batched SO3 / SE3 Lie-group operations in PyTorch.
 
-Port of ``pslam_tpu/geometry/lie.py`` (the SO3/SE3 subset the points-only
-slice uses; Sim3 waits for loop closing). Same conventions:
+Port of ``pslam_tpu/geometry/lie.py``: SO3, SE3 and the Sim3 group of loop
+closing. Same conventions:
 
 - SE3 elements are homogeneous ``(..., 4, 4)`` matrices; composition is a
   matmul and batching is free.
 - Tangent vectors are ``xi = [omega(3), upsilon(3)]`` (g2o ``SE3Quat::exp``
   ordering); updates are left-multiplicative ``T <- exp(xi) @ T``.
+- Sim3 elements are ``Sim3(s, R, t)`` tuples, ``x -> s R x + t``, with
+  tangent ``[omega(3), upsilon(3), sigma]``.
 
 All functions broadcast over leading batch dimensions and are safe at the
 small-angle limit (Taylor switches via ``torch.where`` with safe operands).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -222,3 +226,123 @@ def rotate_points(T, X):
     if X.ndim == T.ndim - 1:
         return torch.einsum("...ij,...j->...i", R, X)
     return torch.einsum("...ij,...nj->...ni", R, X)
+
+
+# --------------------------------------------------------------------------
+# Sim3
+# --------------------------------------------------------------------------
+
+
+class Sim3(NamedTuple):
+    """Similarity transform x -> s * R @ x + t (g2o sim3.h semantics)."""
+
+    s: torch.Tensor  # (...,)
+    R: torch.Tensor  # (..., 3, 3)
+    t: torch.Tensor  # (..., 3)
+
+
+def sim3_identity(batch_shape=(), dtype=torch.float32, device=None):
+    b = tuple(batch_shape)
+    return Sim3(
+        s=torch.ones(b, dtype=dtype, device=device),
+        R=torch.eye(3, dtype=dtype, device=device).expand(b + (3, 3)),
+        t=torch.zeros(b + (3,), dtype=dtype, device=device),
+    )
+
+
+def sim3_compose(a: Sim3, b: Sim3) -> Sim3:
+    """(a o b)(x) = a(b(x))."""
+    return Sim3(
+        s=a.s * b.s,
+        R=a.R @ b.R,
+        t=a.s[..., None] * torch.einsum("...ij,...j->...i", a.R, b.t) + a.t,
+    )
+
+
+def sim3_inverse(g: Sim3) -> Sim3:
+    Rt = g.R.transpose(-1, -2)
+    s_inv = 1.0 / g.s
+    return Sim3(s=s_inv, R=Rt, t=-s_inv[..., None] * torch.einsum("...ij,...j->...i", Rt, g.t))
+
+
+def sim3_transform_points(g: Sim3, X):
+    if X.ndim == g.R.ndim - 1:
+        return g.s[..., None] * torch.einsum("...ij,...j->...i", g.R, X) + g.t
+    return g.s[..., None, None] * torch.einsum("...ij,...nj->...ni", g.R, X) + g.t[..., None, :]
+
+
+def sim3_from_se3(T, s=None):
+    if s is None:
+        s = torch.ones(T.shape[:-2], dtype=T.dtype, device=T.device)
+    return Sim3(s=s, R=T[..., :3, :3], t=T[..., :3, 3])
+
+
+def sim3_to_se3(g: Sim3):
+    """Project Sim3 to SE3 by dividing the translation by the scale (the
+    reference's loop-correction convention, LoopClosing.cc CorrectLoop)."""
+    return se3_from_Rt(g.R, g.t / g.s[..., None])
+
+
+def sim3_exp(zeta) -> Sim3:
+    """(..., 7) tangent [omega(3), upsilon(3), sigma] -> Sim3.
+
+    t = W @ u with W = A*K + B*K^2 + C*I (Ethan Eade / g2o sim3); the
+    coefficients switch to their series where sigma or theta is below 1e-6,
+    as the JAX package does."""
+    w = zeta[..., :3]
+    u = zeta[..., 3:6]
+    sigma = zeta[..., 6]
+    s = torch.exp(sigma)
+    R = so3_exp(w)
+    theta = _safe_norm(w)
+    K = so3_hat(w)
+    K2 = K @ K
+    eye = _eye_like(K, 3)
+
+    eps = 1e-6
+    one = torch.ones_like(sigma)
+    small_sigma = torch.abs(sigma) < eps
+    small_theta = theta < eps
+    sigma_safe = torch.where(small_sigma, one, sigma)
+    theta_safe = torch.where(small_theta, one, theta)
+
+    C = torch.where(small_sigma, 1.0 + sigma / 2.0 + sigma * sigma / 6.0, (s - 1.0) / sigma_safe)
+
+    a_gen = s * torch.sin(theta_safe)
+    b_gen = s * torch.cos(theta_safe)
+    c2 = theta_safe * theta_safe
+    s2 = sigma_safe * sigma_safe
+    denom = s2 + c2
+    A_gen = (a_gen * sigma_safe + (1.0 - b_gen) * theta_safe) / (theta_safe * denom)
+    B_gen = (C - ((b_gen - 1.0) * sigma_safe + a_gen * theta_safe) / denom) / c2
+
+    A_s0 = _cosc(theta)
+    B_s0 = _sincc(theta)
+
+    A_t0 = ((sigma_safe - 1.0) * s + 1.0) / s2
+    B_t0 = (s * 0.5 * s2 + s - 1.0 - sigma_safe * s) / (s2 * sigma_safe)
+
+    A_both = 0.5 + sigma / 6.0
+    B_both = 1.0 / 6.0 + sigma / 24.0
+
+    both = small_sigma & small_theta
+    A = torch.where(both, A_both, torch.where(small_sigma, A_s0, torch.where(small_theta, A_t0, A_gen)))
+    B = torch.where(both, B_both, torch.where(small_sigma, B_s0, torch.where(small_theta, B_t0, B_gen)))
+
+    W = A[..., None, None] * K + B[..., None, None] * K2 + C[..., None, None] * eye
+    return Sim3(s=s, R=R, t=torch.einsum("...ij,...j->...i", W, u))
+
+
+def sim3_log(g: Sim3):
+    """Sim3 -> (..., 7) tangent, the inverse of sim3_exp: W's columns come
+    from exp of the basis vectors, then u solves W u = t."""
+    sigma = torch.log(g.s)
+    w = so3_log(g.R)
+    basis = torch.eye(3, dtype=w.dtype, device=w.device)
+    cols = []
+    for i in range(3):
+        z = torch.cat([w, basis[i].expand(w.shape), sigma[..., None]], dim=-1)
+        cols.append(sim3_exp(z).t)
+    W = torch.stack(cols, dim=-1)
+    u = torch.linalg.solve(W, g.t[..., None])[..., 0]
+    return torch.cat([w, u, sigma[..., None]], dim=-1)

@@ -5,7 +5,9 @@ map-point snapshots, the host map and BA problems. These functions take the
 JAX package's NamedTuples and ``MapState`` fields as numpy arrays (anything
 with the same attribute names: ``np.asarray`` is applied to each field) and
 build the port's counterparts on a given device, so both packages can
-compute on the same map. Nothing here imports JAX.
+compute on the same map. Like ``SlamSystem``, every converter puts its
+tensors on the card unless ``device`` asks for another. Nothing here
+imports JAX.
 """
 
 from __future__ import annotations
@@ -14,9 +16,11 @@ import numpy as np
 import torch
 
 from pslam_tpu_torch.models.map_state import MapState
+from pslam_tpu_torch.ops.bow import Vocabulary, vocabulary_from_arrays
 from pslam_tpu_torch.ops.fans import LILFeatures
 from pslam_tpu_torch.pipeline.frame_ops import FrameData, FrameLineData
 from pslam_tpu_torch.pipeline.frame_step import LILSnap, LineSnap
+from pslam_tpu_torch.pipeline.keyframe_db import KeyFrameDatabase
 from pslam_tpu_torch.pipeline.track_ops import PointSet
 from pslam_tpu_torch.solver.ba_lil import LILBAEdges
 from pslam_tpu_torch.solver.lil import LILPoseObs
@@ -40,7 +44,7 @@ def _convert(cls, obj, device):
     return cls(**{f: _tensor(f, getattr(obj, f), device) for f in cls._fields})
 
 
-def frame_lines_from_numpy(fl, device="cpu") -> FrameLineData:
+def frame_lines_from_numpy(fl, device="cuda") -> FrameLineData:
     """A ``FrameLineData`` (its ``lil`` a ``LILFeatures``) -> the port's
     FrameLineData on ``device``."""
     fields = {f: _tensor(f, getattr(fl, f), device)
@@ -48,35 +52,35 @@ def frame_lines_from_numpy(fl, device="cpu") -> FrameLineData:
     return FrameLineData(lil=_convert(LILFeatures, fl.lil, device), **fields)
 
 
-def line_snap_from_numpy(ls, device="cpu") -> LineSnap:
+def line_snap_from_numpy(ls, device="cuda") -> LineSnap:
     return _convert(LineSnap, ls, device)
 
 
-def lil_snap_from_numpy(qs, device="cpu") -> LILSnap:
+def lil_snap_from_numpy(qs, device="cuda") -> LILSnap:
     return _convert(LILSnap, qs, device)
 
 
-def lil_ba_edges_from_numpy(edges, device="cpu") -> LILBAEdges:
+def lil_ba_edges_from_numpy(edges, device="cuda") -> LILBAEdges:
     return _convert(LILBAEdges, edges, device)
 
 
-def lil_pose_obs_from_numpy(obs, device="cpu") -> LILPoseObs:
+def lil_pose_obs_from_numpy(obs, device="cuda") -> LILPoseObs:
     return _convert(LILPoseObs, obs, device)
 
 
-def point_set_from_numpy(pts, device="cpu") -> PointSet:
+def point_set_from_numpy(pts, device="cuda") -> PointSet:
     """A ``PointSet`` (pos, desc, level, angle, min_dist, max_dist, normal,
     valid) -> the port's PointSet on ``device``."""
     return _convert(PointSet, pts, device)
 
 
-def frame_from_numpy(fd, device="cpu") -> FrameData:
+def frame_from_numpy(fd, device="cuda") -> FrameData:
     """A ``FrameData`` (uv, ur, depth, xyz_c, level, angle, desc, valid) ->
     the port's FrameData on ``device``."""
     return _convert(FrameData, fd, device)
 
 
-def ba_problem_from_numpy(prob, device="cpu") -> BAProblem:
+def ba_problem_from_numpy(prob, device="cuda") -> BAProblem:
     """A ``BAProblem`` -> the port's BAProblem on ``device``."""
     return _convert(BAProblem, prob, device)
 
@@ -98,3 +102,19 @@ def map_state_from_arrays(cfg, src) -> MapState:
         else:
             setattr(m, name, type(cur)(val))
     return m
+
+
+def vocabulary_from_numpy(vocab, device="cuda") -> Vocabulary:
+    """A BoW ``Vocabulary`` (its ``node_desc`` levels and ``idf``) -> the
+    port's Vocabulary on ``device``."""
+    return vocabulary_from_arrays([np.asarray(d) for d in vocab.node_desc],
+                                  np.asarray(vocab.idf), device)
+
+
+def keyframe_db_from_numpy(db, vocab: Vocabulary) -> KeyFrameDatabase:
+    """A new ``KeyFrameDatabase`` over the port's ``vocab`` holding copies of
+    ``db``'s rows (``bow``, ``word``, ``node``, ``present``)."""
+    out = KeyFrameDatabase(vocab, db.bow.shape[0], db.word.shape[1])
+    for name in ("bow", "word", "node", "present"):
+        setattr(out, name, np.array(getattr(db, name), dtype=getattr(out, name).dtype, copy=True))
+    return out

@@ -38,6 +38,34 @@ def _t(a, device):
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def ba_edges(map_state: MapState, cam_ids, pt_slot, cfg: SlamConfig):
+    """The observation edges of a BA problem: every feature of the cameras
+    ``cam_ids`` whose map point has a slot in ``pt_slot``. Returns (camera
+    slot, point slot, [u, v, ur], inverse octave variance, (kf, feature))
+    arrays in camera order, or None when there is no edge."""
+    sigma2 = np.asarray(
+        [(cfg.orb.scale**l) ** 2 for l in range(cfg.orb.levels)], np.float32
+    )
+    e_cam, e_pt, e_obs, e_is2, e_feat = [], [], [], [], []
+    for s, k in enumerate(cam_ids):
+        mp = map_state.kf_feat_mp[k]
+        sel = np.flatnonzero((mp >= 0) & (pt_slot[np.maximum(mp, 0)] >= 0))
+        if len(sel) == 0:
+            continue
+        e_cam.append(np.full(len(sel), s, np.int64))
+        e_pt.append(pt_slot[mp[sel]])
+        uv = map_state.kf_uv[k, sel]
+        ur = map_state.kf_ur[k, sel]
+        e_obs.append(np.concatenate([uv, ur[:, None]], axis=1).astype(np.float32))
+        e_is2.append(
+            1.0 / sigma2[np.clip(map_state.kf_level[k, sel], 0, len(sigma2) - 1)]
+        )
+        e_feat.append(np.stack([np.full(len(sel), k), sel], axis=1))
+    if not e_cam:
+        return None
+    return tuple(np.concatenate(a) for a in (e_cam, e_pt, e_obs, e_is2, e_feat))
+
+
 def assemble_local_ba(map_state: MapState, kf_idx: int, cfg: SlamConfig, device):
     """Build a BAProblem around keyframe ``kf_idx``.
 
@@ -87,32 +115,10 @@ def assemble_local_ba(map_state: MapState, kf_idx: int, cfg: SlamConfig, device)
             free_slot[s] = fs
             fs += 1
 
-    sigma2 = np.asarray(
-        [(cfg.orb.scale**l) ** 2 for l in range(cfg.orb.levels)], np.float32
-    )
-    e_cam, e_pt, e_obs, e_is2, e_feat = [], [], [], [], []
-    for s, k in enumerate(cam_ids):
-        mp = map_state.kf_feat_mp[k]
-        sel = np.flatnonzero((mp >= 0) & (pt_slot[np.maximum(mp, 0)] >= 0))
-        if len(sel) == 0:
-            continue
-        e_cam.append(np.full(len(sel), s, np.int64))
-        e_pt.append(pt_slot[mp[sel]])
-        uv = map_state.kf_uv[k, sel]
-        ur = map_state.kf_ur[k, sel]
-        e_obs.append(np.concatenate([uv, ur[:, None]], axis=1).astype(np.float32))
-        e_is2.append(
-            1.0 / sigma2[np.clip(map_state.kf_level[k, sel], 0, len(sigma2) - 1)]
-        )
-        e_feat.append(np.stack([np.full(len(sel), k), sel], axis=1))
-
-    if not e_cam:
+    edges = ba_edges(map_state, cam_ids, pt_slot, cfg)
+    if edges is None:
         return None
-    e_cam = np.concatenate(e_cam)
-    e_pt = np.concatenate(e_pt)
-    e_obs = np.concatenate(e_obs)
-    e_is2 = np.concatenate(e_is2)
-    e_feat = np.concatenate(e_feat)
+    e_cam, e_pt, e_obs, e_is2, e_feat = edges
 
     E = caps.ba_edges
     n_e = min(len(e_cam), E)

@@ -11,12 +11,13 @@ Host/device split: the host keeps ``MapState`` (numpy) and makes control
 decisions; each frame runs ``frame_step`` on ``self.device`` and reads back
 one 24-float summary. Frame arrays are read back only at keyframe insertion.
 
-This slice covers RGB-D tracking with points (BASELINE config 1,
-``use_lines=False``), with map lines (config 2, ``use_lils=False``) and with
-structural lines and the LIL composite error (config 3, the default),
-without BoW and loop closing: ``use_bow=False, use_loop_closing=False,
-sensor="rgbd", distributed=False``. The constructor raises
-``NotImplementedError`` for anything else.
+This slice covers RGB-D tracking (``sensor="rgbd"``, ``distributed=False``)
+with points (BASELINE config 1, ``use_lines=False``), map lines (config 2,
+``use_lils=False``) or structural lines and the LIL composite error
+(config 3), each with or without BoW place recognition, relocalization and
+loop closing with the Sim3 essential graph and global BA (config 4, the
+default ``SlamConfig()``). The constructor raises ``NotImplementedError``
+for other sensors and for ``distributed=True``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import torch
 
 from pslam_tpu_torch.geometry.lie import rotation_to_quaternion
 from pslam_tpu_torch.models.map_state import MapState
+from pslam_tpu_torch.ops.bow import Vocabulary, default_vocabulary
 from pslam_tpu_torch.ops.fans import LILFeatures
 from pslam_tpu_torch.pipeline import frame_step as fstep
 from pslam_tpu_torch.pipeline import line_mapping, local_mapping
@@ -39,6 +41,9 @@ from pslam_tpu_torch.pipeline.frame_ops import (
     make_frame,
     make_frame_lines,
 )
+from pslam_tpu_torch.pipeline.keyframe_db import KeyFrameDatabase
+from pslam_tpu_torch.pipeline.loop_closing import LoopCloser
+from pslam_tpu_torch.pipeline.relocalization import relocalize
 from pslam_tpu_torch.pipeline.track_ops import (
     PointSet,
     track_against_points_unwindowed,
@@ -92,24 +97,23 @@ def _np(t):
 
 
 class SlamSystem:
-    def __init__(self, cfg: SlamConfig | None = None, device="cuda"):
+    def __init__(self, cfg: SlamConfig | None = None, device="cuda",
+                 vocab: Vocabulary | None = None):
         """Runs on the card unless ``device`` asks for another; raises
         ``NotImplementedError`` for a configuration the port does not cover
-        and ``RuntimeError`` for a CUDA device where CUDA is not available."""
+        and ``RuntimeError`` for a CUDA device where CUDA is not available.
+        ``vocab`` replaces the default BoW vocabulary (``use_bow``)."""
         self.cfg = cfg or SlamConfig()
         c = self.cfg
         unsupported = [
             name for name, on in (
-                ("use_bow", c.use_bow),
-                ("use_loop_closing", c.use_loop_closing),
                 ("sensor != 'rgbd'", c.sensor != "rgbd"),
                 ("distributed", c.distributed),
             ) if on
         ]
         if unsupported:
             raise NotImplementedError(
-                "the PyTorch port covers RGB-D tracking with points, lines and "
-                "LILs (use_bow=False, use_loop_closing=False, sensor='rgbd', "
+                "the PyTorch port covers RGB-D tracking (sensor='rgbd', "
                 f"distributed=False); got {', '.join(unsupported)}"
             )
         self.device = torch.device(device)
@@ -144,6 +148,18 @@ class SlamSystem:
         self._pending_ba = None
         self._pending_backend = None
         self._snap_epoch = 0
+        # Place recognition database (System.cc:61-82) and the loop closer
+        # (LoopClosing, shipped disabled in the reference, on in config 4).
+        self.kf_db = None
+        self.loop_closer = None
+        if c.use_bow:
+            if vocab is None:
+                vocab = default_vocabulary(k=c.bow_k, levels=c.bow_levels, device=self.device)
+            vocab = Vocabulary(tuple(d.to(self.device) for d in vocab.node_desc),
+                               vocab.idf.to(self.device))
+            self.kf_db = KeyFrameDatabase(vocab, c.caps.max_keyframes, c.orb.capacity)
+            if c.use_loop_closing:
+                self.loop_closer = LoopCloser(self)
 
     # ------------------------------------------------------------------
 
@@ -177,10 +193,14 @@ class SlamSystem:
                 self.reset()
                 self._initialize(hf)
                 self._invalidate_snapshot(fold=False)
-            else:
-                raise NotImplementedError(
-                    "relocalization (BoW place recognition) is not ported yet"
-                )
+            elif relocalize(self, hf, fd):
+                # LOST: relocalization (Tracking.cc:327), else keep the last
+                # pose and stay LOST.
+                self.state = TrackState.OK
+                self.velocity = np.eye(4, dtype=np.float32)
+                self._invalidate_snapshot()
+            elif self.last is not None:
+                hf.T_cw = self.last.T_cw.copy()
 
         self.frame_id += 1
         self._commit_frame(hf)
@@ -231,6 +251,7 @@ class SlamSystem:
             hf.frame_id, hf.timestamp, hf.T_cw, hf.uv, hf.ur, hf.level, hf.angle,
             hf.desc, hf.valid, hf.depth, np.full_like(hf.feat_mp, -1),
         )
+        self._register_kf_bow(kf, hf)
         sel = np.flatnonzero((hf.depth > 0) & hf.valid)
         X_w = hf.xyz_c[sel]  # identity pose: camera frame == world frame
         ids = self.map.create_points_from_depth(kf, sel, X_w)
@@ -469,6 +490,7 @@ class SlamSystem:
             hf.frame_id, hf.timestamp, hf.T_cw, hf.uv, hf.ur, hf.level, hf.angle,
             hf.desc, hf.valid, hf.depth, hf.feat_mp,
         )
+        self._register_kf_bow(kf, hf)
         self.ref_kf = kf
         self.stats["kf_inserted"] += 1
 
@@ -515,33 +537,61 @@ class SlamSystem:
         self._run_local_ba(kf)
         self._cull_keyframes(kf)
 
+        # Loop closing on the new KF (LoopClosing::Run polls its queue; here
+        # it runs synchronously after the local BA).
+        if self.loop_closer is not None:
+            self.loop_closer.on_new_keyframe(kf)
+
+    def _loop_kfs(self) -> set:
+        """KFs holding loop edges (never erased: the reference's mspLoopEdges
+        check in KeyFrame::SetBadFlag)."""
+        if self.loop_closer is None:
+            return set()
+        return {k for edge in self.loop_closer.loop_edges for k in edge}
+
+    def _erase_keyframe(self, k: int):
+        """Erase KF ``k`` with the bookkeeping the map can't do: re-target
+        trajectory rows, drop it from the BoW database."""
+        self._retarget_trajectory(k)
+        if self.kf_db is not None:
+            self.kf_db.erase(k)
+        self.map.erase_keyframe(k)
+
     def _evict_for_capacity(self):
         """When the KF table is full and culling could not keep up, evict the
-        most covisibility-redundant unprotected keyframe (with trajectory
-        retargeting) instead of failing."""
+        most covisibility-redundant unprotected keyframe instead of failing.
+        When every unprotected KF holds a loop edge, the most redundant one
+        loses its loop edges and goes."""
         m = self.map
         if m.n_kf < m.kf_valid.shape[0] or (~m.kf_valid[: m.n_kf]).any():
             return
-        protect = {0, self.ref_kf, int(m.last_kf)}
+        hard_protect = {0, self.ref_kf, int(m.last_kf)}
+        protect = hard_protect | self._loop_kfs()
         live = np.asarray([k for k in np.flatnonzero(m.kf_valid) if k not in protect])
         if len(live) == 0:
-            return
-        victim = int(live[np.argmax(m.covis[live, : m.n_kf].max(axis=1))])
-        logging.getLogger(__name__).warning(
-            "keyframe capacity full: evicting most-redundant KF %d", victim
-        )
-        self._retarget_trajectory(victim)
-        m.erase_keyframe(victim)
+            live = np.asarray([k for k in np.flatnonzero(m.kf_valid) if k not in hard_protect])
+            if len(live) == 0:
+                return
+            victim = int(live[np.argmax(m.covis[live, : m.n_kf].max(axis=1))])
+            if self.loop_closer is not None:
+                self.loop_closer.loop_edges = [
+                    (a, b) for a, b in self.loop_closer.loop_edges if victim not in (a, b)
+                ]
+        else:
+            victim = int(live[np.argmax(m.covis[live, : m.n_kf].max(axis=1))])
+            logging.getLogger(__name__).warning(
+                "keyframe capacity full: evicting most-redundant KF %d", victim
+            )
+        self._erase_keyframe(victim)
         self._count("kf_evicted", 1)
 
     def _cull_keyframes(self, kf: int):
-        """KeyFrameCulling + the trajectory bookkeeping the map can't do."""
+        """KeyFrameCulling, sparing the reference KF and loop-edge KFs."""
         victims = local_mapping.cull_keyframes(
-            self.map, kf, self.cfg, protect={self.ref_kf}
+            self.map, kf, self.cfg, protect={self.ref_kf} | self._loop_kfs()
         )
         for k in victims:
-            self._retarget_trajectory(k)
-            self.map.erase_keyframe(k)
+            self._erase_keyframe(k)
         self._count("kf_culled", len(victims))
 
     def _retarget_trajectory(self, k: int):
@@ -651,13 +701,27 @@ class SlamSystem:
         if p["fuse"] is not None:
             self._count("fused", local_mapping.commit_fuse(self.map, p["fuse"], self.cfg))
 
+    def _interrupt_ba(self):
+        """Discard the in-flight local BA and backend (InterruptBA /
+        mbAbortBA, LocalMapping.cc:984-986): the loop closer calls this right
+        before a correction rewrites the poses they were solved against."""
+        self._pending_ba = None
+        self._pending_backend = None
+
+    def _register_kf_bow(self, kf: int, hf: HostFrame):
+        """Compute and store the new KF's BoW (KeyFrame::ComputeBoW +
+        KeyFrameDatabase::add)."""
+        if self.kf_db is None:
+            return
+        self.kf_db.add(kf, *self.kf_db.compute_bow(hf.desc, hf.valid))
+
     # ------------------------------------------------------------------
 
     def reset(self):
         """System::Reset (System.cc:294) / Tracking::Reset (Tracking.cc:2195):
-        clear the map; trajectory bookkeeping keeps accumulating."""
-        self._pending_ba = None
-        self._pending_backend = None
+        clear the map, the BoW database and the loop closer; trajectory
+        bookkeeping keeps accumulating."""
+        self._interrupt_ba()
         self._invalidate_snapshot(fold=False)
         # Freeze prior rows to absolute poses: their reference KFs are about
         # to be destroyed with the map.
@@ -665,6 +729,12 @@ class SlamSystem:
             (ts, self._abs_pose(T_rel, ref), -1) for ts, T_rel, ref in self.trajectory
         ]
         self.map = MapState(self.cfg)
+        if self.kf_db is not None:
+            self.kf_db = KeyFrameDatabase(
+                self.kf_db.vocab, self.cfg.caps.max_keyframes, self.cfg.orb.capacity
+            )
+        if self.loop_closer is not None:
+            self.loop_closer = LoopCloser(self)
         self.state = TrackState.NOT_INITIALIZED
         self.velocity = np.eye(4, dtype=np.float32)
         self.ref_kf = 0

@@ -1,15 +1,17 @@
-"""The port's entry point runs on the card unless the caller asks for the
-CPU, and the ctypes bindings of the CUDA kernels match the kernels' C
+"""The port's entry point and its converters from the JAX package's state
+run on the card unless the caller asks for the CPU, and the ctypes bindings of the CUDA kernels match the kernels' C
 signatures (a mismatch would otherwise show only on the card, as a cut
 pointer). CPU only; no XLA."""
 
 import ctypes
+import inspect
 import re
 from pathlib import Path
 
 import pytest
 import torch
 
+from pslam_tpu_torch import interop
 from pslam_tpu_torch.ops import fused_match, fused_pose
 from pslam_tpu_torch.pipeline.system import SlamSystem
 from pslam_tpu_torch.utils.config import SlamConfig
@@ -28,6 +30,33 @@ def test_default_device_is_the_card():
 def test_cpu_on_request():
     slam = SlamSystem(CFG, device="cpu")
     assert slam.device == torch.device("cpu")
+
+
+def test_default_config_runs_on_the_card_or_on_request():
+    """BASELINE config 4, the default ``SlamConfig()`` (BoW + loop closing),
+    constructs like the other configs: on the card by default, on the CPU
+    on request."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            SlamSystem(SlamConfig())
+    slam = SlamSystem(SlamConfig(), device="cpu")
+    assert slam.kf_db is not None and slam.loop_closer is not None
+    assert slam.kf_db.vocab.device == torch.device("cpu")
+
+
+CONVERTERS = sorted(
+    name for name, fn in vars(interop).items()
+    if name.endswith("_from_numpy") and "device" in inspect.signature(fn).parameters
+)
+
+
+@pytest.mark.parametrize("name", CONVERTERS)
+def test_converters_default_to_the_card(name):
+    assert inspect.signature(getattr(interop, name)).parameters["device"].default == "cuda"
+
+
+def test_every_device_converter_is_held():
+    assert len(CONVERTERS) == 9
 
 
 def _c_argtypes(src: Path) -> dict:

@@ -157,7 +157,7 @@ def test_pose_optimization_with_lils_matches_jax(seed, bad_lil):
     T_t, in_t, _, lin_t = t_pose_opt(
         TC, _t(T0),
         TPoseObs(X_w=_t(X), obs=_t(obs), inv_sigma2=_t(ones), valid=torch.ones(n, dtype=torch.bool)),
-        lil=interop.lil_pose_obs_from_numpy(JLIL(state=states, obs=lobs, valid=lvalid)),
+        lil=interop.lil_pose_obs_from_numpy(JLIL(state=states, obs=lobs, valid=lvalid), device="cpu"),
     )
     T_j, T_t = np.asarray(T_j), T_t.numpy()
     np.testing.assert_allclose(T_t, T_j, rtol=0, atol=1e-4)
@@ -222,8 +222,8 @@ def test_local_ba_lil_matches_jax():
             JEdges(**{k: jnp.asarray(v) for k, v in edges.items()}), n_free))
     jax.clear_caches()
     out_t = [o.numpy() for o in t_ba_lil(
-        TC, interop.ba_problem_from_numpy(JBAProblem(**prob)), _t(lil_state), _t(lil_valid),
-        interop.lil_ba_edges_from_numpy(JEdges(**edges)), n_free)]
+        TC, interop.ba_problem_from_numpy(JBAProblem(**prob), device="cpu"), _t(lil_state), _t(lil_valid),
+        interop.lil_ba_edges_from_numpy(JEdges(**edges), device="cpu"), n_free)]
     T_j, X_j, l_j, inp_j, inl_j = out_j
     T_t, X_t, l_t, inp_t, inl_t = out_t
     np.testing.assert_allclose(T_t, T_j, rtol=0, atol=1e-4)

@@ -88,7 +88,7 @@ def solved():
         prob_j = JBAProblem(**{k: jnp.asarray(v) for k, v in prob_np.items()})
         out_j = jax.device_get(j_lba(JCam(**CAM_KW), prob_j, N_FREE))
     jax.clear_caches()
-    prob_t = interop.ba_problem_from_numpy(JBAProblem(**prob_np), "cpu")
+    prob_t = interop.ba_problem_from_numpy(JBAProblem(**prob_np), device="cpu")
     out_t = [o.numpy() for o in t_lba(TCam(**CAM_KW), prob_t, N_FREE)]
     return prob_np, T_true, X_true, out_j, out_t
 

@@ -111,8 +111,7 @@ def test_trajectory_tum_format(runs, tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("sensor", "stereo"), ("use_bow", True), ("use_loop_closing", True),
-    ("sensor", "mono"), ("distributed", True),
+    ("sensor", "stereo"), ("sensor", "mono"), ("distributed", True),
 ])
 def test_constructor_rejects_what_the_slice_does_not_cover(field, value):
     kw = dict(CFG_KW)

@@ -80,7 +80,7 @@ def test_snapshot_carried_across_exactly(setup):
     js, snap = setup["js"], setup["snap"]
     # Built by the port from the carried-over map, and converted directly
     # from JAX's PointSet: both equal JAX's snapshot, dtypes included.
-    direct = interop.point_set_from_numpy(jax.device_get(js._snap.pts))
+    direct = interop.point_set_from_numpy(jax.device_get(js._snap.pts), device="cpu")
     for f in snap.pts._fields:
         ref = np.asarray(getattr(js._snap.pts, f))
         for pts in (snap.pts, direct):
@@ -99,7 +99,7 @@ def test_track_frame_matches_jax_steps(setup):
     tc = setup["tc"]
     fd_j, r1, r2 = setup["steps_j"]
     T0 = torch.from_numpy(setup["T0"])
-    out_t = tfs.track_frame(tc, interop.frame_from_numpy(fd_j), T0, T0, 15.0,
+    out_t = tfs.track_frame(tc, interop.frame_from_numpy(fd_j, device="cpu"), T0, T0, 15.0,
                             setup["snap"], tfs.make_acc(tc, "cpu"))
     s = out_t.summary.numpy()
     assert s[jfs.S_INLIERS] == r2.n_inliers and s[jfs.S_MATCHES] == r2.n_matches
