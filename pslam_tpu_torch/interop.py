@@ -88,7 +88,9 @@ def ba_problem_from_numpy(prob, device="cuda") -> BAProblem:
 def map_state_from_arrays(cfg, src) -> MapState:
     """A new host ``MapState`` for ``cfg`` whose fields are copied from
     ``src`` (an object or a dict holding the JAX ``MapState``'s fields as
-    arrays or numbers). Fields the port does not keep are ignored."""
+    arrays or numbers, a checkpoint's ``map.*`` entries among them). Fields
+    the port does not keep are ignored; an array whose shape is not the one
+    ``cfg``'s capacities give raises ``ValueError``."""
     get = src.get if isinstance(src, dict) else lambda k: getattr(src, k, None)
     m = MapState(cfg)
     for name, cur in vars(m).items():
@@ -98,6 +100,9 @@ def map_state_from_arrays(cfg, src) -> MapState:
         if val is None:
             continue
         if isinstance(cur, np.ndarray):
+            if np.shape(val) != cur.shape:
+                raise ValueError(f"map field {name}: shape {np.shape(val)} != the "
+                                 f"config's capacity {cur.shape}")
             setattr(m, name, np.array(val, dtype=cur.dtype, copy=True))
         else:
             setattr(m, name, type(cur)(val))

@@ -1,9 +1,10 @@
-"""Per-frame feature construction, RGB-D (port of
-``pslam_tpu/pipeline/frame_ops.py``: ``make_frame`` and ``make_frame_lines``).
+"""Per-frame feature construction (port of
+``pslam_tpu/pipeline/frame_ops.py``: ``make_frame``, ``make_frame_stereo``
+and ``make_frame_lines``).
 
 Replaces the Frame RGB-D constructor pipeline (reference src/Frame.cc:133-210:
-ExtractORB -> ExtractLSD -> UndistortKeyPoints -> ComputeStereoFromRGBD).
-Stereo frames are not ported yet.
+ExtractORB -> ExtractLSD -> UndistortKeyPoints -> ComputeStereoFromRGBD) and
+the stereo constructor (Frame.cc:56-131).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from pslam_tpu_torch.ops.lbd import line_descriptors
 from pslam_tpu_torch.ops.line3d import fit_lines_3d
 from pslam_tpu_torch.ops.lines import LineConfig, detect_lines
 from pslam_tpu_torch.ops.orb import OrbConfig, OrbFeatures, extract_orb
+from pslam_tpu_torch.ops.stereo import compute_stereo_matches
 
 
 class FrameData(NamedTuple):
@@ -56,6 +58,37 @@ def make_frame(img, depth_img, cam: Camera, orb_cfg: OrbConfig) -> FrameData:
         angle=feats.angle,
         desc=feats.desc,
         valid=feats.valid,
+    )
+
+
+def make_frame_stereo(img_l, img_r, cam: Camera, orb_cfg: OrbConfig) -> FrameData:
+    """Stereo frame construction (Frame stereo ctor, Frame.cc:56-131 +
+    ComputeStereoMatches, Frame.cc:1165): ORB in both images, left->right
+    matching along the epipolar rows with sub-pixel SAD refinement
+    (ops/stereo.py), and the same FrameData the RGB-D path produces."""
+    featsL: OrbFeatures = extract_orb(img_l, orb_cfg)
+    featsR: OrbFeatures = extract_orb(img_r, orb_cfg)
+    ur, z = compute_stereo_matches(
+        cam, img_l, img_r,
+        featsL.uv, featsL.level, featsL.desc, featsL.valid,
+        featsR.uv, featsR.level, featsR.desc, featsR.valid,
+        orb_cfg.scale, orb_cfg.levels,
+    )
+    has_depth = (z > 0.05) & featsL.valid
+    uv = undistort_points(cam, featsL.uv)
+    # ur was measured on the raw image row; shift it by the undistortion of
+    # the left u (rectified stereo: the same distortion in both views).
+    ur_u = torch.where(has_depth, ur + (uv[:, 0] - featsL.uv[:, 0]), torch.full_like(z, -1.0))
+    xyz_c = backproject(cam, uv, z) * has_depth[:, None]
+    return FrameData(
+        uv=uv,
+        ur=ur_u,
+        depth=torch.where(has_depth, z, torch.zeros_like(z)),
+        xyz_c=xyz_c,
+        level=featsL.level,
+        angle=featsL.angle,
+        desc=featsL.desc,
+        valid=featsL.valid,
     )
 
 

@@ -9,6 +9,9 @@
   map-associated structural-line (LIL) observations join its pose solve.
 - ``track_against_points_unwindowed``: the reference-KF fallback with no
   projection window (plain Hamming matrix).
+- ``track_frame_to_frame`` / ``track_frame_to_frame_unwindowed``: the
+  localization-only visual-odometry steps against the previous frame's
+  depth-backed features (``_vo_point_set``).
 
 The TPU's one-hot matmul row gathers (``_gather_rows``) become plain
 indexing with identical results.
@@ -202,6 +205,62 @@ def track_against_points_unwindowed(
     po = _pose_obs_from_matches(pts, frame, match_idx, sigma2)
     T_opt, inlier, _, _ = pose_optimization(cam, T_prior, po)
     return _result(T_opt, match_idx, po, inlier, pts.valid)
+
+
+def _vo_point_set(prev_fd: FrameData, T_prev) -> PointSet:
+    """The previous frame's depth-backed features as temporary landmarks
+    (UpdateLastFrame's temporal VO points, Tracking.cc:1110-1162); nothing is
+    inserted into the map."""
+    R = T_prev[:3, :3]
+    t = T_prev[:3, 3]
+    pos_w = (prev_fd.xyz_c - t) @ R  # R^T (Xc - t)
+    C = -R.T @ t
+    d = pos_w - C[None, :]
+    dist = torch.linalg.vector_norm(d, dim=-1)
+    return PointSet(
+        pos=pos_w,
+        desc=prev_fd.desc,
+        level=prev_fd.level,
+        angle=prev_fd.angle,
+        min_dist=torch.zeros_like(dist),
+        max_dist=dist * 10.0 + 1.0,
+        normal=d / torch.clamp(dist[:, None], min=1e-9),
+        valid=prev_fd.valid & (prev_fd.depth > 0),
+    )
+
+
+def track_frame_to_frame(
+    cam: Camera,
+    T_prior,
+    prev_fd: FrameData,
+    T_prev,
+    frame: FrameData,
+    radius,
+    orb_scale: float = 1.2,
+    orb_levels: int = 8,
+) -> TrackResult:
+    """Windowed visual-odometry step of localization-only mbVO mode (kernels
+    K1 and K2 on CUDA tensors)."""
+    pts = _vo_point_set(prev_fd, T_prev)
+    return track_against_points(
+        cam, T_prior, pts, frame, radius, orb_scale, orb_levels, check_scale=False,
+    )
+
+
+def track_frame_to_frame_unwindowed(
+    cam: Camera,
+    T_prior,
+    prev_fd: FrameData,
+    T_prev,
+    frame: FrameData,
+    orb_scale: float = 1.2,
+    orb_levels: int = 8,
+) -> TrackResult:
+    """Unwindowed VO fallback: descriptor matching against the previous
+    frame's features, for pans whose image shift exceeds any projection
+    window (kernel K2 in the pose solve)."""
+    pts = _vo_point_set(prev_fd, T_prev)
+    return track_against_points_unwindowed(cam, T_prior, pts, frame, orb_scale, orb_levels)
 
 
 def track_local_map_step(

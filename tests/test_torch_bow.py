@@ -32,6 +32,18 @@ from pslam_tpu_torch.ops.orb import OrbConfig as TOrb, extract_orb as t_extract_
 from pslam_tpu_torch.utils.config import SlamConfig as TCfg
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread while this module runs: the suite
+    runs in several worker processes, and torch's default of a thread a
+    core in each of them oversubscribes the host and slows these tests up
+    to tenfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _perturb(desc, n_bits, rng):
     """Flip n_bits random bits in each packed descriptor."""
     bits = np.unpackbits(desc, axis=-1, bitorder="little")

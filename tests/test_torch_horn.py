@@ -27,6 +27,18 @@ CAM_KW = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0)
 JC, TC = JCam(**CAM_KW), TCam(**CAM_KW)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread while this module runs: the suite
+    runs in several worker processes, and torch's default of a thread a
+    core in each of them oversubscribes the host and slows these tests up
+    to tenfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _T(xi):
     return np.array(j_se3_exp(jnp.asarray(np.asarray(xi, np.float32))))
 

@@ -42,6 +42,18 @@ TC = TCfg(camera=TCam(**CAM_KW), orb=TOrb(n_features=500), lines=TLines(tile=8),
           caps=TCaps(**CAPS), **CFG_KW)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread while this module runs: the suite
+    runs in several worker processes, and torch's default of a thread a
+    core in each of them oversubscribes the host and slows these tests up
+    to tenfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def built():
     """The port's slice on frames 0-3 (its map) and frame 5's features."""

@@ -49,6 +49,18 @@ JCAM, TCAM = JCam(**CAM_KW), TCam(**CAM_KW)
 PX, DESC, M3D = 1e-3, 1e-5, 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread while this module runs: the suite
+    runs in several worker processes, and torch's default of a thread a
+    core in each of them oversubscribes the host and slows these tests up
+    to tenfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a, copy=True))
 

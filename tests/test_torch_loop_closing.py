@@ -44,6 +44,18 @@ CAPS = dict(max_keyframes=32, max_map_points=4096, local_points=512,
 CFG_KW = dict(use_lines=False, bow_k=8, bow_levels=3)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread while this module runs: the suite
+    runs in several worker processes, and torch's default of a thread a
+    core in each of them oversubscribes the host and slows these tests up
+    to tenfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _build_jax_world():
     """tests/test_loop_closing.py's drifted_world: KFs 0-2 see cloud A, 3-5
     B, 6-8 C, 9-13 A again through drifted duplicate points and poses."""
@@ -226,8 +238,8 @@ def test_global_ba_matches_jax(world):
 
 
 def test_system_config_4_constructs():
-    """Only stereo, mono and distributed still raise; the default config
-    (BoW + loop closing) builds its database and loop closer."""
+    """Only distributed still raises; the default config (BoW + loop
+    closing) builds its database and loop closer."""
     tc = TCfg(orb=TOrb(n_features=256), caps=TCaps(**CAPS), **CFG_KW)
     ts = TSys(dataclasses.replace(tc, use_loop_closing=False), device="cpu")
     assert ts.kf_db is not None and ts.loop_closer is None

@@ -114,7 +114,14 @@ def test_trajectory_tum_format(runs, tmp_path):
     ("sensor", "stereo"), ("sensor", "mono"), ("distributed", True),
 ])
 def test_constructor_rejects_what_the_slice_does_not_cover(field, value):
+    """Only ``distributed=True`` is still rejected; the stereo and mono
+    sensors construct (on the CPU here)."""
     kw = dict(CFG_KW)
     kw[field] = value
-    with pytest.raises(NotImplementedError):
-        TSys(TCfg(**kw))
+    if field == "distributed":
+        with pytest.raises(NotImplementedError):
+            TSys(TCfg(**kw))
+    else:
+        ts = TSys(TCfg(**kw), device="cpu")
+        assert ts.cfg.sensor == value and ts.device.type == "cpu"
+        assert ts.state == TState.NO_IMAGES_YET

@@ -17,6 +17,7 @@ tests/test_torch_slice.py). As there, JAX's keypoint top-k is pinned to
 import jax
 import numpy as np
 import pytest
+import torch
 
 from pslam_tpu.geometry import Camera as JCam
 from pslam_tpu.io.synthetic import arc_trajectory, render_sequence
@@ -33,6 +34,18 @@ from pslam_tpu_torch.utils.config import Capacities as TCaps, SlamConfig as TCfg
 CAM_KW = dict(fx=258.65, fy=258.25, cx=159.3, cy=127.65, bf=20.0, width=320, height=240)
 CAPS_KW = dict(local_points=1024, max_keyframes=32)
 N_FRAMES = 8
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread while this module runs: the suite
+    runs in several worker processes, and torch's default of a thread a
+    core in each of them oversubscribes the host and slows these tests up
+    to tenfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _centre(T):

@@ -41,6 +41,18 @@ COUNTS = [jfs.S_INLIERS, jfs.S_MATCHES, jfs.S_WEIGHTED, jfs.S_TRACKED_CLOSE,
           jfs.S_INLIERS_1]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's CPU ops on one thread while this module runs: the suite
+    runs in several worker processes, and torch's default of a thread a
+    core in each of them oversubscribes the host and slows these tests up
+    to tenfold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def setup():
     jc = JCfg(camera=JCam(**CAM_KW), orb=JOrb(n_features=500),
