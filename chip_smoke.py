@@ -21,9 +21,10 @@ non-zero exit and no result line):
 3. K2 (fused pose terms) against its plain version within the
    tests/test_pallas_pose.py tolerances at E = 4096 (Huber on and off), 128
    and 8192, and at E = 4096 with every edge mono (``obs_ur = -1``, the
-   monocular path) off the truth (at the truth H, b and the cost are held
-   and chi2, a few ulps of a pixel coordinate against 2 px of noise, is
-   measured and printed); an all-inactive input gives H = 0,
+   monocular path) off the truth and at it; chi2 within the 1e-4 bar, and
+   in the all-mono case at the truth alone within that bar plus a per-edge
+   bound on the f32 rounding of the pixel coordinates
+   (``_k2_chi2_bound``); an all-inactive input gives H = 0,
    b = 0 and cost = 0 exactly;
    two launches of one input bit-identical. Times and bound as in phase 2.
 4. the slice: ``SlamSystem(SlamConfig(use_lines=False, use_bow=False,
@@ -98,10 +99,27 @@ non-zero exit and no result line):
    starts LOST, as in the JAX package) relocalizes and tracks 5 more frames
    OK. Config 1 has no place recognition, so a resumed config-1 system cannot
    relocalize; it is checked by its arrays only.
+16. the TUM app: tests/test_tum_io.py's distorted dataset (the TUM1 lens,
+   ``render_sequence(n_frames=12, seed=4, use_distortion=True)``, 640x480)
+   written as PNGs by this script's own minimal writer (the card's machine
+   has no PIL), then ``apps.rgbd_tum.main`` on the card twice: with
+   ``--no-lines --no-loop --kitti`` and with its default flags (config 4 from
+   the settings file). Each: every frame OK, f/kf (and KITTI) files of the
+   right shapes, ATE < 5 cm, every tracked frame through both kernels; prints
+   the app's tracking-time summary and StageTimers report beside phase 4's
+   median, and the PNG decode time. ``dump_map_ply`` and ``dump_map_npz`` of
+   run 2's map, the NPZ read back equal to the map's arrays.
+17. distribution at world size 1: a one-rank NCCL group (``file://`` init;
+   no NCCL is a failure). The sharded point BA, LIL BA and essential graph
+   (``parallel/``) on tests/test_parallel.py's problems, built here in
+   numpy, bit-identical to the single-device solvers, with both times; then
+   config 1 with ``distributed=True`` over phase 4's 60 frames, its
+   trajectory bit-identical to phase 4's and every tracked frame through both
+   kernels. The group is destroyed at the end.
 
 The kernels' launch counters are set to 0 just before each main path
-(phases 4, 6, 10-14, the relocalization call of phase 8 and the resumed
-frames of phase 15) and read just after. The line before the last is a JSON
+(phases 4, 6, 10-14, 16 and 17, the relocalization call of phase 8 and the
+resumed frames of phase 15) and read just after. The line before the last is a JSON
 object with one entry per kernel, its launches summed over those paths; the
 last line is ``{"ok": true, "device": {...}}``.
 
@@ -434,35 +452,77 @@ def _pose_inputs(fused_pose, dev, E, seed, cam, off_truth=False, mono=False):
     return data, torch.from_numpy(T).to(dev)
 
 
-def _k2_check(fused_pose, data, par, label, hold_chi2=True):
-    """Kernel vs plain within the tests/test_pallas_pose.py tolerances;
-    returns (the kernel's outputs, the largest absolute difference). With
-    ``hold_chi2=False`` the per-edge chi2 is measured and printed, not held
-    (H, b and the cost still are)."""
+def _k2_chi2_bound(data, par):
+    """Per-edge bound on |chi2_kernel - chi2_plain| from f32 rounding, in
+    float64 from the inputs (first-order forward error, unit roundoff
+    eps = 2^-24, any summation order or contraction):
+    - x, y, z are 4-term sums R X + t: |dx| <= 4 eps S_x, S_x = sum |R_0j X_j| + |t_0|;
+    - u = fx x (1/z) + cx (3 roundings before the add, 1 for the add):
+      |du| <= fx |dx| / |z| + |u - cx| (|dz| / |z| + 3 eps) + eps |u|, the
+      same for v, and |dur| <= |du| + bf (|dz| / z^2 + 2 eps / |z|) + eps |ur|;
+    - r = obs - u adds eps |r|.
+    Each version's r_i is within d_i of the exact one, so the two chi2 differ
+    by at most inv_sigma2 sum_i 4 d_i (|r_i| + d_i). Returns (the bound (E,),
+    d_u in ulps of the edge's largest pixel coordinate (E,))."""
+    d = data.double().cpu().numpy()
+    p = par.double().cpu().numpy().reshape(-1)
+    eps = 2.0 ** -24
+    R, t = p[:16].reshape(4, 4)[:3, :3], p[:16].reshape(4, 4)[:3, 3]
+    fx, fy, cx, cy, bf = p[16:21]
+    X, obs, inv_s2 = d[0:3].T, d[3:6].T, d[6]
+    xc = X @ R.T + t
+    dxc = 4 * eps * (np.abs(X) @ np.abs(R).T + np.abs(t))
+    x, y, z = xc.T
+    iz = 1.0 / z
+    rel_z = dxc[:, 2] * np.abs(iz)
+    pu, pv = fx * x * iz, fy * y * iz
+    proj = np.stack([pu + cx, pv + cy, pu + cx - bf * iz], axis=1)
+    stereo = obs[:, 2] >= 0
+    r = (obs - proj) * np.stack([np.ones_like(z), np.ones_like(z), stereo], axis=1)
+    du = fx * np.abs(iz) * dxc[:, 0] + np.abs(pu) * (rel_z + 3 * eps) + eps * np.abs(proj[:, 0])
+    dv = fy * np.abs(iz) * dxc[:, 1] + np.abs(pv) * (rel_z + 3 * eps) + eps * np.abs(proj[:, 1])
+    dur = du + bf * np.abs(iz) * (rel_z + 2 * eps) + eps * np.abs(proj[:, 2])
+    dr = np.stack([du, dv, dur * stereo], axis=1) + eps * np.abs(r)
+    bound = inv_s2 * np.sum(4 * dr * (np.abs(r) + dr), axis=1)
+    ulp = np.spacing(np.abs(proj).max(axis=1).astype(np.float32)).astype(np.float64)
+    return bound, du / ulp
+
+
+def _k2_check(fused_pose, data, par, label, rounding_bound=False):
+    """Kernel vs plain within the tests/test_pallas_pose.py tolerances: chi2
+    within that 1e-4 bar, or with ``rounding_bound`` (only every edge mono at
+    the truth) within the bar plus the per-edge f32 rounding bound of
+    ``_k2_chi2_bound``; returns (the kernel's outputs, the largest absolute
+    difference)."""
     got = [g.cpu().numpy() for g in fused_pose.pose_terms(data, par)]
     ref = [r.cpu().numpy() for r in fused_pose.pose_terms_plain(data, par)]
     checks = (
         ("H", got[0], ref[0], dict(rtol=2e-4, atol=1e-3)),
         ("b", got[1], ref[1], dict(rtol=2e-4, atol=1e-2)),
         ("cost", got[2], ref[2], dict(rtol=1e-5, atol=0)),
-        ("chi2", got[3], ref[3], dict(rtol=1e-4, atol=1e-4)),
     )
     worst, rel = 0.0, {}
     for name, g, r, tol in checks:
-        if name == "chi2" and not hold_chi2:
-            d = np.abs(np.asarray(g, np.float64) - r)
-            out = d > tol["atol"] + tol["rtol"] * np.abs(r)
-            print(f"[3 K2] {label}: chi2 measured, not held: {int(out.sum())} of {len(r)} "
-                  f"edges beyond the tolerance, max absolute difference {d.max():.3e}, max "
-                  f"relative {float((d / np.maximum(np.abs(r), 1e-30)).max()):.3e}")
-        else:
-            np.testing.assert_allclose(g, r, err_msg=f"K2 {name} ({label})", **tol)
+        np.testing.assert_allclose(g, r, err_msg=f"K2 {name} ({label})", **tol)
+    bound, k_ulp = _k2_chi2_bound(data, par)
+    if not rounding_bound:
+        bound = np.zeros_like(bound)
+    d = np.abs(np.asarray(got[3], np.float64) - ref[3])
+    bar = 1e-4 + 1e-4 * np.abs(ref[3])
+    if np.any(d > bar + bound):
+        i = int(np.argmax(d - bar - bound))
+        raise AssertionError(f"K2 chi2 ({label}): edge {i} differs by {d[i]:.3e}, beyond "
+                             f"the bar {bar[i]:.3e} + rounding bound {bound[i]:.3e}")
+    for name, g, r, _ in checks + (("chi2", got[3], ref[3], None),):
         worst = max(worst, float(np.abs(np.asarray(g, np.float64) - r).max()))
         rel[name] = float(np.abs(np.asarray(g, np.float64) - r).max()
                           / max(float(np.abs(r).max()), 1e-30))
-    held = "within tolerance" if hold_chi2 else "H, b and cost within tolerance"
-    print(f"[3 K2] {label}: {held}; max relative error H {rel['H']:.2e} "
-          f"b {rel['b']:.2e} cost {rel['cost']:.2e} chi2 {rel['chi2']:.2e}")
+    held = "1e-4 bar + rounding bound" if rounding_bound else "1e-4 bar"
+    print(f"[3 K2] {label}: within tolerance; max relative error H {rel['H']:.2e} "
+          f"b {rel['b']:.2e} cost {rel['cost']:.2e} chi2 {rel['chi2']:.2e}; chi2 held to the "
+          f"{held}: {int((d > bar).sum())} of {len(d)} edges beyond the bare bar, max |diff| "
+          f"{d.max():.3e}, max |diff| / (bar + bound) {float((d / (bar + bound)).max()):.3f}, "
+          f"rounding bound of u {np.median(k_ulp):.1f} ulp median, {k_ulp.max():.1f} max")
     return got, worst
 
 
@@ -486,18 +546,17 @@ def _phase_k2(fused_pose, dev):
         if E == 4096:
             main = (data, params(T, False))
 
-    # Every edge mono, as on the monocular path: off the truth, where the
-    # pose solve iterates, every output is held. At the truth a residual is
-    # pure 2 px noise, taken as the difference of two coordinates up to
-    # ~1400 px: a few f32 ulps of u (FMA contraction in the kernel, separate
-    # roundings in the plain version) are then up to ~4e-4 of a small chi2,
-    # beyond the 1e-4 bar on a handful of edges (measured on one H100).
-    # There H, b and the cost are held and chi2 is measured.
+    # Every edge mono, as on the monocular path, off the truth (where the
+    # pose solve iterates) and at it. At the truth a residual is pure 2 px
+    # noise, the difference of two coordinates up to ~1400 px, so the f32
+    # rounding of u (both versions; see _k2_chi2_bound) is a visible share of
+    # a small chi2: up to 1.2e-3 on a few edges, within their bound. That
+    # case alone is held to the bar plus the bound; every other to the bar.
     for off in (True, False):
         data, T = _pose_inputs(fused_pose, dev, 4096, 4, cam, off_truth=off, mono=True)
         _k2_check(fused_pose, data, params(T, True),
                   "E=4096 all mono (obs_ur = -1)" + (" off the truth" if off else " at the truth"),
-                  hold_chi2=off)
+                  rounding_bound=not off)
 
     data, T = _pose_inputs(fused_pose, dev, 4096, 3, cam)
     data[7] = 0.0
@@ -580,7 +639,7 @@ def _drive_main_path(name, cfg, n_frames, fused_match, fused_pose):
         raise AssertionError(f"{name}: too few keyframes or local BAs, or ATE >= 5 cm")
     if launches["fused_match"] < 2 * tracked or launches["fused_pose"] < 98 * tracked:
         raise AssertionError(f"{name} did not run through both kernels: {launches}")
-    return slam, launches, tracked
+    return slam, launches, tracked, float(np.median(ms[5:]))
 
 
 def _map_arrays(slam):
@@ -1234,6 +1293,446 @@ def _phase_checkpoint(device, fused_match, fused_pose, slam14, slam13, frames13)
     return launches
 
 
+# tests/test_tum_io.py's settings (Examples/RGB-D/TUM1.yaml: the distorted
+# TUM1 lens).
+TUM1_SETTINGS = """\
+%YAML:1.0
+Camera.fx: 517.306408
+Camera.fy: 516.469215
+Camera.cx: 318.643040
+Camera.cy: 255.313989
+Camera.k1: 0.262383
+Camera.k2: -0.953104
+Camera.p1: -0.005358
+Camera.p2: 0.002628
+Camera.k3: 1.163314
+Camera.width: 640
+Camera.height: 480
+Camera.fps: 30.0
+Camera.bf: 40.0
+ThDepth: 40.0
+DepthMapFactor: 5000.0
+ORBextractor.nFeatures: 1000
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+"""
+
+
+def _write_png(path, arr, paeth=False):
+    """A minimal PNG writer (the card's machine has no PIL): 8-bit gray or
+    RGB, or 16-bit gray; every row filter type 0, or with ``paeth`` type 4
+    (the decoder's slowest case)."""
+    import struct
+    import zlib
+
+    h, w = arr.shape[:2]
+    colour = 2 if arr.ndim == 3 else 0
+    depth = 16 if arr.dtype == np.uint16 else 8
+    raw = np.ascontiguousarray(arr.astype(">u2") if depth == 16 else arr).reshape(h, -1)
+    data = raw.view(np.uint8).astype(np.int64)
+    if paeth:
+        bpp = data.shape[1] // w
+        up = np.r_[np.zeros((1, data.shape[1]), np.int64), data[:-1]]
+        left = np.pad(data, ((0, 0), (bpp, 0)))[:, :-bpp]
+        ul = np.pad(up, ((0, 0), (bpp, 0)))[:, :-bpp]
+        pa, pb, pc = np.abs(up - ul), np.abs(left - ul), np.abs(left + up - 2 * ul)
+        pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+        data = (data - pred) % 256
+    rows = np.concatenate([np.full((h, 1), 4 if paeth else 0), data], axis=1).astype(np.uint8)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    Path(path).write_bytes(
+        b"\x89PNG\r\n\x1a\n"
+        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, colour, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def _tum_dataset(root, n_frames=12, seed=4):
+    """tests/test_tum_io.py's distorted dataset at 640x480: settings, PNGs
+    and association file under ``root``. Returns (settings path, true
+    poses)."""
+    from pslam_tpu_torch.io.synthetic import render_sequence
+    from pslam_tpu_torch.io.tum import config_from_settings, load_settings_yaml
+
+    (root / "rgb").mkdir(parents=True, exist_ok=True)
+    (root / "depth").mkdir(exist_ok=True)
+    settings = root / "settings.yaml"
+    settings.write_text(TUM1_SETTINGS)
+    cam = config_from_settings(load_settings_yaml(str(settings))).camera
+    grays, depths, poses_gt = render_sequence(cam, n_frames=n_frames, seed=seed,
+                                              use_distortion=True)
+    rows = []
+    for i, (g, d) in enumerate(zip(grays, depths)):
+        t = 1305031102.0 + i / 30.0
+        rgb8 = np.stack([np.clip(g, 0, 255).astype(np.uint8)] * 3, -1)
+        d16 = np.clip(d * 5000.0, 0, 65535).astype(np.uint16)
+        _write_png(root / "rgb" / f"{i}.png", rgb8)
+        _write_png(root / "depth" / f"{i}.png", d16)
+        if i == 0:  # frame 0 again with every row Paeth-filtered, to time the decoder
+            _write_png(root / "rgb_paeth.png", rgb8, paeth=True)
+            _write_png(root / "depth_paeth.png", d16, paeth=True)
+        rows.append(f"{t:.6f} rgb/{i}.png {t:.6f} depth/{i}.png")
+    (root / "assoc.txt").write_text("\n".join(rows) + "\n")
+    return settings, poses_gt
+
+
+def _run_app(args, fused_match, fused_pose):
+    """``apps.rgbd_tum.main(args)`` with the system it builds recorded, its
+    stderr captured and the launch counters read around it. Returns
+    (system, the states after each frame, stderr, launches, seconds)."""
+    import io
+    from pslam_tpu_torch.apps.rgbd_tum import main
+    from pslam_tpu_torch.pipeline import system as sysmod
+
+    made, states = [], []
+    base = sysmod.SlamSystem
+
+    class Recorded(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+        def track_rgbd(self, *a, **kw):
+            T = super().track_rgbd(*a, **kw)
+            states.append(self.state.name)
+            return T
+
+    err = io.StringIO()
+    sysmod.SlamSystem = Recorded
+    _zero_counts(fused_match, fused_pose)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = main(args)
+    finally:
+        sysmod.SlamSystem = base
+    seconds = time.perf_counter() - t0
+    if rc != 0 or len(made) != 1:
+        raise AssertionError(f"16 tum app: main returned {rc}\n{err.getvalue()}")
+    return made[0], states, err.getvalue(), _counts(fused_match, fused_pose), seconds
+
+
+def _phase_tum_app(device, fused_match, fused_pose, ms4):
+    """The TUM app at full width on ``device``, twice; returns (launches,
+    tracked frames) of both runs."""
+    from pslam_tpu_torch.apps.visualize import dump_map_npz, dump_map_ply
+    from pslam_tpu_torch.io.tum import load_depth, load_rgb_gray
+    from pslam_tpu_torch.utils.metrics import ate_rmse, trajectory_positions
+
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke" / "tum"
+    t0 = time.perf_counter()
+    settings, poses_gt = _tum_dataset(out / "seq")
+    write_s = time.perf_counter() - t0
+    seq = out / "seq"
+    decode_ms = {}
+    for name, load in (("rgb", load_rgb_gray), ("depth", load_depth)):
+        decoded = []
+        for label, path in (("filter 0", seq / name / "0.png"),
+                            ("Paeth", seq / f"{name}_paeth.png")):
+            t0 = time.perf_counter()
+            decoded.append(load(str(path)))
+            decode_ms[f"{name} {label}"] = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(*decoded):
+            raise AssertionError(f"16 tum app: the Paeth-filtered {name} PNG decodes otherwise")
+    gt = trajectory_positions(poses_gt)
+    base = [str(settings), str(seq), str(seq / "assoc.txt")]
+    n = len(poses_gt)
+    dev_flag = ["--device", device]
+    results = {}
+    with contextlib.chdir(out):
+        for name, flags in (("run1", ["--no-lines", "--no-loop", "--kitti"]), ("run2", [])):
+            slam, states, err, launches, secs = _run_app(base + [name] + flags + dev_flag,
+                                                         fused_match, fused_pose)
+            f = np.loadtxt(f"f_{name}.txt")
+            kf = np.atleast_2d(np.loadtxt(f"kf_{name}.txt"))
+            ate = ate_rmse(f[:, 1:4], gt)
+            summary = [ln for ln in err.splitlines() if "tracking time" in ln]
+            report = err[err.index("stage "):].split("\nsaved")[0]
+            print(f"[16 tum app] {name} {' '.join(flags) or '(default flags: config 4)'}: "
+                  f"{len(f)} rows, {len(kf)} keyframe rows, states {states}, ATE "
+                  f"{ate * 100:.3f} cm, {secs:.1f} s; {'; '.join(summary)} (phase 4: median "
+                  f"{ms4:.2f} ms/frame); launches {launches} {_per_frame(launches, n - 1)}")
+            print("[16 tum app] " + report.replace("\n", "\n[16 tum app] "))
+            if f.shape != (n, 8) or kf.shape[1] != 8 or states != ["OK"] * n:
+                raise AssertionError(f"16 tum app {name}: wrong trajectory files or a frame "
+                                     f"not tracked: {f.shape}, {kf.shape}, {states}")
+            if not ate < 0.05:
+                raise AssertionError(f"16 tum app {name}: ATE {ate * 100:.3f} cm >= 5 cm")
+            results[name] = (slam, launches)
+        kitti = np.loadtxt("kitti_run1.txt")
+        if kitti.shape != (n, 12):
+            raise AssertionError(f"16 tum app: KITTI file of shape {kitti.shape}")
+        _check_launches("16 tum app run 1", device, results["run1"][1], n - 1)
+        _check_launches("16 tum app run 2", device, results["run2"][1], n - 1)
+        slam = results["run2"][0]
+        m = slam.map
+        ply = dump_map_ply(m, "map.ply")
+        npz = np.load(dump_map_npz(m, "map.npz"))
+        k = m.n_kf
+        expect = dict(mp_pos=m.mp_pos[m.mp_valid], mp_n_obs=m.mp_n_obs[m.mp_valid],
+                      ml_pos=m.ml_pos[m.ml_valid], ml_n_obs=m.ml_n_obs[m.ml_valid],
+                      il_state=m.il_state[m.il_valid], il_plane=m.il_plane[m.il_valid],
+                      kf_pose=m.kf_pose[:k][m.kf_valid[:k]],
+                      kf_timestamp=m.kf_timestamp[:k][m.kf_valid[:k]])
+        differ = [key for key, v in expect.items() if not np.array_equal(npz[key], v)]
+        n_vertex = int(Path(ply).read_text().split("element vertex ")[1].split()[0])
+        want = (len(expect["mp_pos"]) + 2 * len(expect["ml_pos"]) + 5 * len(expect["il_state"]))
+    print(f"[16 tum app] dataset written in {write_s:.1f} s; PNG decode at 640x480 (host): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in decode_ms.items()) + "; map dump of run 2: "
+          f"{len(expect['mp_pos'])} points, {len(expect['ml_pos'])} lines, "
+          f"{len(expect['il_state'])} LILs, PLY vertices {n_vertex}, NPZ arrays differing "
+          f"{differ}")
+    if differ or n_vertex != want or not len(expect["mp_pos"]):
+        raise AssertionError(f"16 tum app: the map dumps disagree with the map: {differ}, "
+                             f"{n_vertex} vs {want} vertices")
+    l1, l2 = results["run1"][1], results["run2"][1]
+    return {k: l1[k] + l2[k] for k in l1}, 2 * (n - 1)
+
+
+def _se3_exp_np(xi):
+    from pslam_tpu_torch.geometry import se3_exp
+
+    return se3_exp(torch.from_numpy(np.asarray(xi, np.float32))).numpy()
+
+
+def _ba_problem(seed=11, n_cams=6, n_pts=300, n_fixed=2, pad_to=8):
+    """tests/test_solver.py's ``TestLocalBA._ba_problem(seed=11)`` in numpy,
+    padded as tests/test_parallel.py pads it: a numpy BAProblem dict, the
+    true poses, n_free."""
+    from pslam_tpu_torch.geometry import Camera, project_stereo
+
+    cam = Camera(fx=517.3, fy=516.5, cx=318.6, cy=255.3, bf=40.0)
+    rng = np.random.default_rng(seed)
+    X = rng.uniform([-3, -2, 2.0], [3, 2, 8.0], size=(n_pts, 3)).astype(np.float32)
+    T_true = np.stack([_se3_exp_np(np.concatenate(
+        [rng.normal(0, 0.02, 3), [0.3 * i - 0.75, 0, 0.05 * i]])) for i in range(n_cams)])
+    cam_idx, pt_idx, obs = [], [], []
+    for c in range(n_cams):
+        Xc = X @ T_true[c, :3, :3].T + T_true[c, :3, 3]
+        uvr = project_stereo(cam, torch.from_numpy(Xc)).numpy()
+        vis = ((Xc[:, 2] > 0.3) & (uvr[:, 0] > 0) & (uvr[:, 0] < 640) & (uvr[:, 1] > 0)
+               & (uvr[:, 1] < 480))
+        idx = np.where(vis)[0]
+        cam_idx.append(np.full(len(idx), c))
+        pt_idx.append(idx)
+        obs.append(uvr[idx] + rng.normal(0, 0.3, size=(len(idx), 3)).astype(np.float32))
+    cam_idx = np.concatenate(cam_idx).astype(np.int64)
+    pt_idx = np.concatenate(pt_idx).astype(np.int64)
+    obs = np.concatenate(obs).astype(np.float32)
+    T_pert = T_true.copy()
+    for c in range(n_fixed, n_cams):
+        xi = rng.normal(0, 0.01, 6).astype(np.float32)
+        xi[3:] *= 5.0
+        T_pert[c] = _se3_exp_np(xi) @ T_pert[c]
+    X_pert = X + rng.normal(0, 0.03, size=X.shape).astype(np.float32)
+    free_slot = np.full(n_cams, -1, np.int64)
+    free_slot[n_fixed:] = np.arange(n_cams - n_fixed)
+
+    def pad(a, fill=0):
+        n = -(-len(a) // pad_to) * pad_to
+        out = np.full((n,) + a.shape[1:], fill, a.dtype)
+        out[:len(a)] = a
+        return out
+
+    E = len(cam_idx)
+    prob = dict(T_cw=T_pert, free_slot=free_slot, X_w=pad(X_pert),
+                point_valid=pad(np.ones(n_pts, bool), False), cam_idx=pad(cam_idx),
+                pt_idx=pad(pt_idx), obs=pad(obs), inv_sigma2=pad(np.ones(E, np.float32), 1.0),
+                edge_valid=pad(np.ones(E, bool), False))
+    return prob, T_true, n_cams - n_fixed, cam
+
+
+def _lil_problem(T_true, Q=8, pad_to=8):
+    """tests/test_parallel.py's LIL problem (``_make_lils`` of
+    tests/test_lil.py, its camera) in numpy: (ledges dict, lil_state,
+    lil_valid)."""
+    from pslam_tpu_torch.geometry import Camera, project
+
+    lil_cam = Camera(fx=400.0, fy=400.0, cx=320.0, cy=240.0, bf=40.0)
+
+    def make_lils(rng, T):
+        states, obses = [], []
+        for _ in range(Q):
+            X = rng.uniform([-1.5, -1.0, 3.0], [1.5, 1.0, 6.0]).astype(np.float32)
+            d1 = rng.normal(size=3)
+            d1 /= np.linalg.norm(d1)
+            d2 = rng.normal(size=3)
+            d2 -= d1 * (d1 @ d2)
+            d2 /= np.linalg.norm(d2)
+            state = np.concatenate([X - 0.5 * d1, X + 0.7 * d1, X - 0.6 * d2, X + 0.4 * d2,
+                                    X]).astype(np.float32)
+            pts_c = state.reshape(5, 3) @ T[:3, :3].T + T[:3, 3]
+            uv = project(lil_cam, torch.from_numpy(pts_c.astype(np.float32))).numpy()
+
+            def line_eq(a, b):
+                la, lb, lc = a[1] - b[1], b[0] - a[0], a[0] * b[1] - a[1] * b[0]
+                n_ = np.hypot(la, lb)
+                return np.array([la / n_, lb / n_, lc / n_])
+
+            obses.append(np.concatenate([line_eq(uv[0], uv[1]), line_eq(uv[2], uv[3]),
+                                         uv[4]]).astype(np.float32))
+            states.append(state)
+        return np.stack(states), np.stack(obses)
+
+    rng = np.random.default_rng(7)
+    le_cam, le_lil, le_obs, lil_states = [], [], [], None
+    for c in range(len(T_true)):
+        st_c, obs_c = make_lils(np.random.default_rng(7), T_true[c])
+        lil_states = st_c if lil_states is None else lil_states
+        le_cam.extend([c] * Q)
+        le_lil.extend(range(Q))
+        le_obs.append(obs_c)
+    El = len(le_cam)
+    n = -(-El // pad_to) * pad_to
+
+    def pad(a, fill=0):
+        out = np.full((n,) + a.shape[1:], fill, a.dtype)
+        out[:El] = a
+        return out
+
+    ledges = dict(cam_idx=pad(np.asarray(le_cam, np.int64)),
+                  lil_idx=pad(np.asarray(le_lil, np.int64)),
+                  obs=pad(np.concatenate(le_obs)), valid=pad(np.ones(El, bool), False))
+    state = lil_states + np.tile(rng.normal(0, 0.05, (Q, 3)).astype(np.float32), (1, 5))
+    return ledges, state.astype(np.float32), np.ones(Q, bool)
+
+
+def _drift_pose_graph(K=12, E_pad=16, seed=1):
+    """tests/test_parallel.py's ``_drift_pose_graph``: an odometry circle
+    with drift and one loop edge, in numpy with the port's Sim3."""
+    from pslam_tpu_torch.geometry.lie import Sim3, sim3_compose, sim3_exp, sim3_inverse
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32))
+
+    rng = np.random.default_rng(seed)
+    gt = []
+    for k in range(K):
+        a = 2 * np.pi * k / K
+        T = _se3_exp_np([0.0, a, 0.0, np.cos(a), 0.0, np.sin(a)])
+        gt.append(Sim3(s=t(1.0), R=t(T[:3, :3]), t=t(T[:3, 3])))
+    meas = [sim3_compose(gt[i + 1], sim3_inverse(gt[i])) for i in range(K - 1)]
+    est = [gt[0]]
+    for i in range(K - 1):
+        noisy = sim3_compose(sim3_exp(t(np.r_[rng.normal(0, 0.01, 3), rng.normal(0, 0.02, 3),
+                                              rng.normal(0, 0.005)])), meas[i])
+        est.append(sim3_compose(noisy, est[i]))
+    all_meas = meas + [sim3_compose(gt[0], sim3_inverse(gt[K - 1]))]
+    E = len(all_meas)
+    e_i, e_j = np.zeros(E_pad, np.int64), np.zeros(E_pad, np.int64)
+    e_i[:E] = np.r_[np.arange(K - 1), [K - 1]]
+    e_j[:E] = np.r_[np.arange(1, K), [0]]
+    s, R = np.ones(E_pad, np.float32), np.tile(np.eye(3, dtype=np.float32), (E_pad, 1, 1))
+    tt, ok = np.zeros((E_pad, 3), np.float32), np.zeros(E_pad, bool)
+    s[:E] = [float(m.s) for m in all_meas]
+    R[:E] = np.stack([m.R.numpy() for m in all_meas])
+    tt[:E] = np.stack([m.t.numpy() for m in all_meas])
+    ok[:E] = True
+    fixed = np.zeros(K, bool)
+    fixed[0] = True
+    return dict(s=np.stack([float(e.s) for e in est]).astype(np.float32),
+                R=np.stack([e.R.numpy() for e in est]), t=np.stack([e.t.numpy() for e in est]),
+                fixed=fixed, vertex_valid=np.ones(K, bool), e_i=e_i, e_j=e_j, e_s=s, e_R=R,
+                e_t=tt, e_valid=ok)
+
+
+def _solver_inputs(dev):
+    """The three solvers' problems of tests/test_parallel.py on ``dev``."""
+    from pslam_tpu_torch.geometry.lie import Sim3
+    from pslam_tpu_torch.solver.ba_lil import LILBAEdges
+    from pslam_tpu_torch.solver.local_ba import BAProblem
+    from pslam_tpu_torch.solver.sim3_graph import PoseGraphProblem
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to(dev)
+
+    ba, T_true, n_free, cam = _ba_problem()
+    ledges, lil_state, lil_valid = _lil_problem(T_true)
+    g = _drift_pose_graph()
+    prob = BAProblem(**{k: t(v) for k, v in ba.items()})
+    graph = PoseGraphProblem(S=Sim3(t(g["s"]), t(g["R"]), t(g["t"])), fixed=t(g["fixed"]),
+                             vertex_valid=t(g["vertex_valid"]), e_i=t(g["e_i"]),
+                             e_j=t(g["e_j"]), e_Sji=Sim3(t(g["e_s"]), t(g["e_R"]), t(g["e_t"])),
+                             e_valid=t(g["e_valid"]))
+    return (cam, n_free, prob, t(lil_state), t(lil_valid),
+            LILBAEdges(**{k: t(v) for k, v in ledges.items()}), graph)
+
+
+def _phase_distributed(device, fused_match, fused_pose, cfg, base, n_frames=60):
+    """A one-rank process group (NCCL on the card): the sharded solvers
+    against the single-device ones, bit for bit, and ``cfg`` with
+    distributed=True over ``n_frames`` of the arc against ``base``, the
+    system of the same frames without it (phase 4). Returns (launches,
+    tracked)."""
+    import torch.distributed as dist
+    from pslam_tpu_torch.parallel.sharded_ba import (
+        sharded_local_bundle_adjustment,
+        sharded_local_bundle_adjustment_lil,
+    )
+    from pslam_tpu_torch.parallel.sharded_graph import optimize_essential_graph_sharded
+    from pslam_tpu_torch.solver.ba_lil import local_bundle_adjustment_lil
+    from pslam_tpu_torch.solver.local_ba import local_bundle_adjustment
+    from pslam_tpu_torch.solver.sim3_graph import optimize_essential_graph
+
+    backend = "gloo" if device == "cpu" else "nccl"
+    if backend == "nccl" and not dist.is_nccl_available():
+        raise AssertionError("17 distributed: this torch has no NCCL")
+    init = Path(__file__).resolve().parent / "build" / "chip_smoke" / "dist_init"
+    init.parent.mkdir(parents=True, exist_ok=True)
+    init.unlink(missing_ok=True)
+    dist.init_process_group(backend, init_method=f"file://{init}", rank=0, world_size=1)
+    try:
+        cam, n_free, prob, lil_state, lil_valid, ledges, graph = _solver_inputs(device)
+        pairs = {
+            "point BA": (lambda: sharded_local_bundle_adjustment(cam, prob, n_free),
+                         lambda: local_bundle_adjustment(cam, prob, n_free)),
+            "LIL BA": (lambda: sharded_local_bundle_adjustment_lil(
+                           cam, prob, lil_state, lil_valid, ledges, n_free),
+                       lambda: local_bundle_adjustment_lil(
+                           cam, prob, lil_state, lil_valid, ledges, n_free)),
+            "essential graph": (lambda: optimize_essential_graph_sharded(graph, n_iters=20),
+                                lambda: optimize_essential_graph(graph, n_iters=20)),
+        }
+        for name, (sharded, single) in pairs.items():
+            outs, ms = {}, {"sharded": [], "single": []}
+            for label, fn in (("sharded", sharded), ("single", single)) * 2:
+                _sync(device)
+                t0 = time.perf_counter()
+                outs[label] = fn()
+                _sync(device)
+                ms[label].append((time.perf_counter() - t0) * 1e3)
+            same = all(torch.equal(x, y) for x, y in zip(outs["sharded"], outs["single"]))
+            print(f"[17 distributed] one {backend} rank, {name}: bit-identical to the "
+                  f"single-device solver {same}; ms per call (the first with warm-up) sharded "
+                  f"{[round(x, 2) for x in ms['sharded']]}, single "
+                  f"{[round(x, 2) for x in ms['single']]}")
+            if not same:
+                d = max(float((x.double() - y.double()).abs().max())
+                        for x, y in zip(outs["sharded"], outs["single"]))
+                raise AssertionError(f"17 distributed: sharded {name} differs from the "
+                                     f"single-device solver by {d:.3e}")
+        _zero_counts(fused_match, fused_pose)
+        slam, ms, *_ = _run_slice(dataclasses.replace(cfg, distributed=True), device, n_frames)
+        launches = _counts(fused_match, fused_pose)
+        same = np.array_equal(slam.poses, base.poses)
+        print(f"[17 distributed] {'config 1' if not cfg.use_lines else 'config'} with "
+              f"distributed=True at world size 1 over {n_frames} frames: trajectory "
+              f"bit-identical to the run without it {same}; local BAs {slam.stats['ba_runs']}, "
+              f"median {np.median(ms[5:]):.2f} ms/frame; launches {launches} "
+              f"{_per_frame(launches, n_frames - 1)}")
+        if not same:
+            raise AssertionError("17 distributed: the distributed=True run differs")
+        _check_launches("17 distributed", device, launches, n_frames - 1)
+    finally:
+        dist.destroy_process_group()
+    return launches, n_frames - 1
+
+
 def _configs():
     """(config 1, config 3, the small config 1 of phase 5)."""
     from pslam_tpu_torch.geometry import Camera
@@ -1300,7 +1799,8 @@ def main():
     k2 = _phase_k2(fused_pose, dev)
 
     cfg, cfg3, small = _configs()
-    _, launches, tracked = _drive_main_path("4 slice", cfg, 60, fused_match, fused_pose)
+    slam4, launches, tracked, ms4 = _drive_main_path("4 slice", cfg, 60, fused_match,
+                                                     fused_pose)
 
     from pslam_tpu_torch.io.synthetic import arc_trajectory
 
@@ -1315,7 +1815,8 @@ def main():
     if g_run[3] != c_run[3] or not same_kf or diff > 0.02:
         raise AssertionError("card and CPU runs of the small slice disagree")
 
-    slam3, launches3, tracked3 = _drive_main_path("6 lines", cfg3, 60, fused_match, fused_pose)
+    slam3, launches3, tracked3, _ = _drive_main_path("6 lines", cfg3, 60, fused_match,
+                                                     fused_pose)
     m = slam3.map
     n_ml, n_il = int(m.ml_valid.sum()), int(m.il_valid.sum())
     n_reobs = int((m.il_n_obs[m.il_valid] >= 2).sum())
@@ -1340,11 +1841,14 @@ def main():
     launches13, tracked13, slam13, frames13 = _phase_vo("cuda", fused_match, fused_pose)
     launches14, tracked14, slam14 = _phase_pipelined("cuda", fused_match, fused_pose, cfg)
     launches15 = _phase_checkpoint("cuda", fused_match, fused_pose, slam14, slam13, frames13)
+    launches16, tracked16 = _phase_tum_app("cuda", fused_match, fused_pose, ms4)
+    launches17, tracked17 = _phase_distributed("cuda", fused_match, fused_pose, cfg, slam4)
     # Launches: every path summed; per tracked frame: the paths that track
-    # every frame (phases 4, 6, 10, 11, 12, 13 and 14).
+    # every frame (phases 4, 6, 10-14, 16 runs 1 and 2, and 17).
     tracked_paths = ((launches, tracked), (launches3, tracked3), (launches10, tracked10),
                      (launches11, tracked11), (launches12, tracked12),
-                     (launches13, tracked13), (launches14, tracked14))
+                     (launches13, tracked13), (launches14, tracked14),
+                     (launches16, tracked16), (launches17, tracked17))
     on_frames = {k: sum(l[k] for l, _ in tracked_paths) for k in launches}
     n_tracked = sum(n for _, n in tracked_paths)
     print(json.dumps({"kernels": _kernel_entries(

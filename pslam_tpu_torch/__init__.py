@@ -1,20 +1,25 @@
 """pslam_tpu_torch — the PyTorch/CUDA port of pslam_tpu.
 
 The port mirrors ``pslam_tpu``'s layout (``geometry``, ``ops``, ``solver``,
-``models``, ``pipeline``, ``io``, ``utils``) module for module, so each
-function's counterpart is easy to find. It imports torch and numpy only.
+``models``, ``pipeline``, ``parallel``, ``io``, ``apps``, ``utils``) module
+for module, so each function's counterpart is easy to find. It imports torch
+and numpy only.
 
-The port covers RGB-D tracking with points, map lines and structural lines
-(BASELINE configs 1-3, ``use_bow=False, use_loop_closing=False``) driven
-through ``SlamSystem.track_rgbd``. The two TPU Pallas kernels on that path
-are hand-written CUDA kernels for Hopper (``csrc/``), launched by
+The port does what ``pslam_tpu`` does: RGB-D, stereo and monocular tracking
+through ``SlamSystem`` with points, map lines and structural lines (LILs),
+local mapping and the Schur local BA, BoW relocalization, loop closing with
+the Sim3 essential graph and global BA (the default ``SlamConfig()``),
+localization-only mode, pipelined tracking, checkpoints, the TUM IO and the
+``apps.rgbd_tum`` CLI, and the edge-sharded solvers of ``parallel`` over
+``torch.distributed`` (``distributed=True``). The two TPU Pallas kernels are
+hand-written CUDA kernels for Hopper (``csrc/``), launched by
 ``ops/fused_match.py`` and ``ops/fused_pose.py``; on CPU tensors their
 wrappers run the plain PyTorch versions.
 
-Device handling: ``SlamSystem(cfg)`` runs on the CUDA card and raises
-``RuntimeError`` where there is none; ``SlamSystem(cfg, device="cpu")`` asks
-for the CPU. Every other function computes on the device of the tensors it
-is given.
+Device handling: ``SlamSystem(cfg)`` and the app run on the CUDA card and
+raise ``RuntimeError`` where there is none; ``SlamSystem(cfg, device="cpu")``
+(``--device cpu``) asks for the CPU. Every other function computes on the
+device of the tensors it is given.
 """
 
 import torch as _torch

@@ -1,1 +1,1 @@
-"""Dataset IO: the synthetic RGB-D scene generator."""
+"""Dataset IO: TUM/ICL loaders, synthetic RGB-D scenes, checkpoints."""

@@ -144,6 +144,15 @@ def train_vocabulary(descs_u8: np.ndarray, k: int = 10, levels: int = 3, seed: i
     return vocabulary_from_arrays(level_desc, idf, device)
 
 
+def save_vocabulary(vocab: Vocabulary, path: str):
+    """Serialize a vocabulary to the JAX package's compressed ``.npz``
+    (``level<l>`` packed node descriptors and ``idf``), which
+    ``load_vocabulary`` of either package reads."""
+    arrs = {f"level{l}": d.cpu().numpy() for l, d in enumerate(vocab.node_desc)}
+    arrs["idf"] = vocab.idf.cpu().numpy()
+    np.savez_compressed(path, **arrs)
+
+
 def load_vocabulary(path: str, device="cuda") -> Vocabulary:
     data = np.load(path)
     levels = sorted(int(k.removeprefix("level")) for k in data.files if k.startswith("level"))

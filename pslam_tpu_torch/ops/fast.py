@@ -76,6 +76,33 @@ def fast_score_dual(stack, th_hi: int, th_lo: int):
     return corner_hi, corner_lo, score_lo
 
 
+def fast_score(stack, threshold: int):
+    """Segment test + score for each pixel, in the input dtype (the JAX
+    package's ``fast_score``; the tracker uses ``fast_score_dual``).
+
+    stack: (..., H, W) float32 intensities.
+    Returns (is_corner (..., H, W) bool, score (..., H, W)) where score is
+    the sum of |I_p - I_center| - threshold over circle pixels on the
+    dominant (brighter/darker) arc side, the ranking statistic cv::FAST uses.
+    Border pixels (3px) are NOT masked here."""
+    t = torch.tensor(threshold, dtype=stack.dtype, device=stack.device)
+    zero = torch.zeros((), dtype=stack.dtype, device=stack.device)
+    m_b = torch.zeros(stack.shape, dtype=torch.int32, device=stack.device)
+    m_d = torch.zeros_like(m_b)
+    excess_b, excess_d = [], []
+    for s, (dx, dy) in enumerate(CIRCLE):
+        diff = _shift2d(stack, int(dy), int(dx)) - stack
+        brighter, darker = diff > t, diff < -t
+        m_b |= brighter.to(torch.int32) << s
+        m_d |= darker.to(torch.int32) << s
+        excess = torch.abs(diff) - t
+        excess_b.append(torch.where(brighter, excess, zero))
+        excess_d.append(torch.where(darker, excess, zero))
+    is_corner = _arc9_from_bits(m_b) | _arc9_from_bits(m_d)
+    score = torch.maximum(torch.stack(excess_b).sum(0), torch.stack(excess_d).sum(0))
+    return is_corner, score
+
+
 def nms3x3(score):
     """3x3 non-maximum suppression mask for (L, H, W) scores (-inf padding).
     The max is exact in any dtype, so it is taken on an f32 copy."""

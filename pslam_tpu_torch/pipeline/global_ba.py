@@ -1,5 +1,5 @@
 """Global bundle adjustment over the whole map (port of
-``pslam_tpu/pipeline/global_ba.py``, its single-device path).
+``pslam_tpu/pipeline/global_ba.py``).
 
 Replaces Optimizer::GlobalBundleAdjustemnt (reference src/Optimizer.cc:41-237,
 run by LoopClosing::RunGlobalBundleAdjustment, LoopClosing.cc:645-750): all
@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from pslam_tpu_torch.models.map_state import MapState
+from pslam_tpu_torch.parallel.sharded_ba import solver_ranks
 from pslam_tpu_torch.pipeline.local_mapping import _t, ba_edges, write_back_ba
 from pslam_tpu_torch.solver.local_ba import BAProblem, local_bundle_adjustment
 from pslam_tpu_torch.utils.config import SlamConfig
@@ -93,7 +94,10 @@ def run_global_ba(m: MapState, cfg: SlamConfig, device, schedule=(10, 10)) -> bo
     if out is None:
         return False
     prob, cam_ids, pt_ids, e_feat, n_e = out
-    result = local_bundle_adjustment(cfg.camera, prob, cfg.caps.gba_free, schedule=schedule)
+    # With cfg.distributed and more than one rank the solve is the
+    # edge-sharded one (parallel/sharded_ba.py).
+    result = local_bundle_adjustment(cfg.camera, prob, cfg.caps.gba_free, schedule=schedule,
+                                     ranks=solver_ranks(cfg))
     write_back_ba(m, tuple(t.cpu().numpy() for t in result), cam_ids, pt_ids, e_feat, n_e,
                   prob.free_slot.cpu().numpy())
     return True

@@ -254,6 +254,12 @@ def commit_triangulation(m: MapState, pend, cfg: SlamConfig) -> int:
     return len(ids)
 
 
+def create_new_map_points(m: MapState, kf: int, cfg: SlamConfig, device="cuda") -> int:
+    """Synchronous dispatch+commit wrapper (tests / non-pipelined callers)."""
+    pend = dispatch_triangulation(m, kf, cfg, device)
+    return 0 if pend is None else commit_triangulation(m, pend, cfg)
+
+
 def _fuse_match(cam: Camera, T_cw, pts: PointSet, f_uv, f_ur, f_level, f_desc,
                 f_valid, scale: float, levels: int):
     """Project candidate points into a KF and match against its features
@@ -417,6 +423,12 @@ def commit_fuse(m: MapState, pend, cfg: SlamConfig) -> int:
         m.update_point_stats(touched)
     return n_fused
 
+
+
+def search_in_neighbors(m: MapState, kf: int, cfg: SlamConfig, device="cuda") -> int:
+    """Synchronous dispatch+commit wrapper (tests / non-pipelined callers)."""
+    pend = dispatch_fuse(m, kf, cfg, device)
+    return 0 if pend is None else commit_fuse(m, pend, cfg)
 
 def cull_keyframes(m: MapState, kf: int, cfg: SlamConfig, protect=()) -> list:
     """KeyFrameCulling (LocalMapping.cc:989-1055): a covisible KF whose close

@@ -1,5 +1,5 @@
 """Loop closing: detection, Sim3 computation, loop correction, global BA (port
-of ``pslam_tpu/pipeline/loop_closing.py``, its single-device path).
+of ``pslam_tpu/pipeline/loop_closing.py``).
 
 Re-implements LoopClosing (reference src/LoopClosing.cc), which the reference
 ships disabled (``while(0)``, LoopClosing.cc:61) and BASELINE config 4 turns
@@ -48,6 +48,7 @@ from pslam_tpu_torch.ops.match import (
     rotation_consistency_mask,
     window_mask,
 )
+from pslam_tpu_torch.parallel.sharded_ba import solver_ranks
 from pslam_tpu_torch.pipeline.global_ba import run_global_ba
 from pslam_tpu_torch.solver.horn import ransac_priorities, se3_ransac_3d3d, sim3_ransac
 from pslam_tpu_torch.solver.sim3_graph import (
@@ -451,20 +452,33 @@ class LoopCloser:
         fixed[loop_kf] = True
         vvalid = np.zeros(Kc, bool)
         vvalid[:K] = m.kf_valid[:K]
+
+        # Distributed path: pad the edge set to the world size and shard it
+        # (parallel/sharded_graph.py); identity-measurement padding keeps the
+        # masked edges' sim3_log finite.
+        ranks = solver_ranks(self.sys.cfg)
+        n_dev = ranks.size
+        E = len(ei)
+        Ep = -(-E // n_dev) * n_dev
+        e_i = np.zeros(Ep, np.int64)
+        e_j = np.zeros(Ep, np.int64)
+        e_s = np.ones(Ep, np.float32)
+        e_R = np.tile(np.eye(3, dtype=np.float32), (Ep, 1, 1))
+        e_t = np.zeros((Ep, 3), np.float32)
+        e_ok = np.zeros(Ep, bool)
+        e_i[:E], e_j[:E], e_s[:E] = ei, ej, ms
+        e_R[:E], e_t[:E] = np.stack(mR), np.stack(mt)
+        e_ok[:E] = True
         prob = PoseGraphProblem(
             S=Sim3(self._t(s), self._t(R), self._t(t)),
             fixed=self._t(fixed),
             vertex_valid=self._t(vvalid),
-            e_i=self._t(np.asarray(ei, np.int64)),
-            e_j=self._t(np.asarray(ej, np.int64)),
-            e_Sji=Sim3(
-                self._t(np.asarray(ms, np.float32)),
-                self._t(np.stack(mR).astype(np.float32)),
-                self._t(np.stack(mt).astype(np.float32)),
-            ),
-            e_valid=self._t(np.ones(len(ei), bool)),
+            e_i=self._t(e_i),
+            e_j=self._t(e_j),
+            e_Sji=Sim3(self._t(e_s), self._t(e_R), self._t(e_t)),
+            e_valid=self._t(e_ok),
         )
-        S_opt = optimize_essential_graph(prob, n_iters=20)
+        S_opt = optimize_essential_graph(prob, n_iters=20, ranks=ranks)
         return Sim3(*(a[:K] for a in S_opt))
 
     def _correct_landmarks_by_ref_kf(self, K, poses_mid, S_opt):

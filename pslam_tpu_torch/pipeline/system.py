@@ -18,8 +18,11 @@ monocular (``track_mono``, with two-view initialization) sensors; points
 (config 3), each with or without BoW place recognition, relocalization and
 loop closing with the Sim3 essential graph and global BA (config 4, the
 default ``SlamConfig()``); localization-only mode with its visual-odometry
-fallback; and depth-1 pipelined tracking (``track_rgbd_pipelined``). The
-constructor raises ``NotImplementedError`` for ``distributed=True``.
+fallback; and depth-1 pipelined tracking (``track_rgbd_pipelined``). With
+``distributed=True`` and a ``torch.distributed`` process group of more than
+one rank, every rank runs the same pipeline and the local BA, global BA and
+essential graph run edge-sharded (``parallel/``); with one rank, or no
+process group, the plain solvers run, as the reference does on one device.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from pslam_tpu_torch.pipeline.frame_ops import (
 from pslam_tpu_torch.pipeline.keyframe_db import KeyFrameDatabase
 from pslam_tpu_torch.pipeline.loop_closing import LoopCloser
 from pslam_tpu_torch.pipeline.relocalization import relocalize
+from pslam_tpu_torch.parallel.sharded_ba import solver_ranks
 from pslam_tpu_torch.pipeline.track_ops import (
     PointSet,
     track_against_points_unwindowed,
@@ -107,16 +111,10 @@ class SlamSystem:
     def __init__(self, cfg: SlamConfig | None = None, device="cuda",
                  vocab: Vocabulary | None = None):
         """Runs on the card unless ``device`` asks for another; raises
-        ``NotImplementedError`` for ``distributed=True``, which the port does
-        not cover, and ``RuntimeError`` for a CUDA device where CUDA is not
-        available. ``vocab`` replaces the default BoW vocabulary
-        (``use_bow``)."""
+        ``RuntimeError`` for a CUDA device where CUDA is not available.
+        ``vocab`` replaces the default BoW vocabulary (``use_bow``)."""
         self.cfg = cfg or SlamConfig()
         c = self.cfg
-        if c.distributed:
-            raise NotImplementedError(
-                "the PyTorch port runs on one device (distributed=False)"
-            )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -926,15 +924,19 @@ class SlamSystem:
             lil_pack = line_mapping.assemble_lil_edges(self.map, cam_ids, cfg, self.device)
         lil_opt = il_ids = None
         n_lil_edges = 0
+        # caps.ba_edges and ba_points are powers of two, so the
+        # fixed-capacity arrays divide by a power-of-two world size.
+        ranks = solver_ranks(cfg)
         if lil_pack is not None:
             lil_state, lil_valid, ledges, il_ids = lil_pack
             n_lil_edges = int(_np(ledges.valid).sum())
             T_opt, X_opt, lil_opt, in_p, _ = local_bundle_adjustment_lil(
-                cfg.camera, prob, lil_state, lil_valid, ledges, cfg.caps.ba_free
+                cfg.camera, prob, lil_state, lil_valid, ledges, cfg.caps.ba_free, ranks=ranks
             )
             result = (T_opt, X_opt, in_p)
         else:
-            result = local_bundle_adjustment(cfg.camera, prob, cfg.caps.ba_free)[:3]
+            result = local_bundle_adjustment(cfg.camera, prob, cfg.caps.ba_free,
+                                             ranks=ranks)[:3]
         self._pending_ba = {
             "result": result,
             "lil_opt": lil_opt,

@@ -9,7 +9,7 @@ edges (info I*0.01, Huber sqrt(11.07)), LM schedule 5 + 10 with the chi2
 
 The LIL landmark update is a rigid 3-d translation of the 15-d structure
 (see solver/lil.py), so LIL Hessian blocks are 3x3: the landmark axis of the
-Schur system is points ++ LILs and ``_solve_schur`` is reused unchanged. The
+Schur system is points ++ LILs and ``_schur_step`` is reused unchanged. The
 LIL blocks are summed with the same fixed-order tables as the point blocks,
 so the solve is deterministic on the card too. (Map lines get no vertices in
 the reference's active BA, and none here.)
@@ -24,15 +24,18 @@ import torch
 from pslam_tpu_torch.geometry import Camera
 from pslam_tpu_torch.solver.lil import CHI2_LIL, lil_residual_jac, lil_weights
 from pslam_tpu_torch.solver.local_ba import (
+    ONE_DEVICE,
     BAProblem,
     _apply,
     _assemble,
     _edge_depth,
+    _edge_shard,
     _edge_terms,
     _gates,
     _problem_plan,
-    _solve_schur,
+    _schur_step,
     assembly_plan,
+    lm_loop,
 )
 
 
@@ -61,67 +64,68 @@ def local_bundle_adjustment_lil(
     ledges: LILBAEdges,
     n_free: int,
     schedule=(5, 10),
+    ranks=ONE_DEVICE,
 ):
     """Joint point + LIL local BA.
+
+    With a process group's ``ranks`` (parallel/sharded_ba.py) point edges
+    and LIL edges are both sharded by rank, and the point blocks and the LIL
+    blocks are each reduce-scattered over their own landmark axis: a rank's
+    owned points ++ owned LILs form its part of the reduced camera system.
 
     Returns (T_opt, X_opt, lil_state_opt, point_edge_inlier,
     lil_edge_inlier)."""
     Q = lil_state.shape[0]
-    P = prob.X_w.shape[0]
-    plan_p = _problem_plan(prob, n_free)
-    plan_l = assembly_plan(prob.free_slot, ledges.cam_idx, ledges.lil_idx,
-                           ledges.valid, n_free, Q)
-    lm_valid = torch.cat([prob.point_valid, lil_valid], dim=0)
+    esl = ranks.shard(prob.cam_idx.shape[0], "edge")
+    lsl = ranks.shard(ledges.cam_idx.shape[0], "LIL edge")
+    psl = ranks.shard(prob.X_w.shape[0], "point")
+    qsl = ranks.shard(Q, "LIL")
+    shard = _edge_shard(prob, esl)
+    lshard = LILBAEdges(*(a[lsl] for a in ledges))
+    plan_p = _problem_plan(shard, n_free)
+    plan_l = assembly_plan(prob.free_slot, lshard.cam_idx, lshard.lil_idx, lshard.valid,
+                           n_free, Q)
+    lm_valid_own = torch.cat([prob.point_valid[psl], lil_valid[qsl]], dim=0)
+    n_p_own = psl.stop - psl.start
 
-    def normal_eqs(T_all, X_all, lst, active_p, active_l, use_huber):
-        _, w_p, r_p, Jc_p, Jp_p, cost_p = _edge_terms(cam, prob, T_all, X_all, active_p,
-                                                      use_huber)
-        Hcc, bc, Hpp, bp, G = _assemble(plan_p, n_free, w_p, r_p, Jc_p, Jp_p)
-        _, w_l, r_l, Jc_l, Jl_l, _, cost_l = _lil_edge_terms(cam, T_all, lst, ledges,
-                                                             active_l, use_huber)
-        Hcc_l, bc_l, Hll, bl, Gl = _assemble(plan_l, n_free, w_l, r_l, Jc_l, Jl_l)
-        blocks = (Hcc + Hcc_l, bc + bc_l, torch.cat([Hpp, Hll]), torch.cat([bp, bl]),
-                  torch.cat([G, Gl]))
-        return blocks, cost_p + cost_l
+    def normal_eqs(active_p, active_l, use_huber):
+        def at(state):
+            T_all, X_all, lst = state
+            _, w_p, r_p, Jc_p, Jp_p, cost_p = _edge_terms(cam, shard, T_all, X_all,
+                                                          active_p[esl], use_huber)
+            Hcc, bc, Hpp, bp, G = _assemble(plan_p, n_free, w_p, r_p, Jc_p, Jp_p)
+            _, w_l, r_l, Jc_l, Jl_l, _, cost_l = _lil_edge_terms(cam, T_all, lst, lshard,
+                                                                 active_l[lsl], use_huber)
+            Hcc_l, bc_l, Hll, bl, Gl = _assemble(plan_l, n_free, w_l, r_l, Jc_l, Jl_l)
+            Hcc, bc, cost = ranks.all_reduce(Hcc + Hcc_l, bc + bc_l, cost_p + cost_l)
+            Hpp, bp, G = ranks.reduce_scatter(Hpp, bp, G)
+            Hll, bl, Gl = ranks.reduce_scatter(Hll, bl, Gl)
+            return (Hcc, bc, torch.cat([Hpp, Hll]), torch.cat([bp, bl]),
+                    torch.cat([G, Gl])), cost
+        return at
 
-    def apply(T_all, X_all, lst, dx_c, dx_p):
-        T_new, X_new = _apply(prob, T_all, X_all, dx_c, dx_p[:P])
-        shift = dx_p[P:] * lil_valid[:, None]  # (Q, 3)
+    def step(state, blocks, lam):
+        T_all, X_all, lst = state
+        dx_c, dx_own = _schur_step(ranks, blocks, lm_valid_own, lam)
+        (dx_p,) = ranks.all_gather(dx_own[:n_p_own])
+        (dx_l,) = ranks.all_gather(dx_own[n_p_own:])
+        T_new, X_new = _apply(prob, T_all, X_all, dx_c, dx_p)
+        shift = dx_l * lil_valid[:, None]  # (Q, 3)
         return T_new, X_new, lst + shift.repeat(1, 5)
-
-    def lm_phase(T_all, X_all, lst, active_p, active_l, n_iters, use_huber):
-        # One normal-equation assembly per LM iteration: the blocks at the
-        # current estimate ride along (see solver/local_ba.py lm_phase).
-        blocks, cost = normal_eqs(T_all, X_all, lst, active_p, active_l, use_huber)
-        lam = torch.full((), 1e-4, dtype=T_all.dtype, device=T_all.device)
-        for _ in range(n_iters):
-            dx_c, dx_p = _solve_schur(*blocks, lm_valid, lam)
-            T_new, X_new, l_new = apply(T_all, X_all, lst, dx_c, dx_p)
-            blocks_new, cost_new = normal_eqs(T_new, X_new, l_new, active_p, active_l,
-                                              use_huber)
-            accept = cost_new < cost
-            T_all = torch.where(accept, T_new, T_all)
-            X_all = torch.where(accept, X_new, X_all)
-            lst = torch.where(accept, l_new, lst)
-            blocks = tuple(torch.where(accept, a, b) for a, b in zip(blocks_new, blocks))
-            lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-10, 1e6)
-            cost = torch.where(accept, cost_new, cost)
-        return T_all, X_all, lst
 
     _, gate = _gates(prob)
 
     def classify(T_all, X_all, lst):
-        chi2_p, *_ = _edge_terms(cam, prob, T_all, X_all, prob.edge_valid, False)
-        z = _edge_depth(prob, T_all, X_all)
+        chi2_p, *_ = _edge_terms(cam, shard, T_all, X_all, shard.edge_valid, False)
+        chi2_p, z = ranks.all_gather(chi2_p, _edge_depth(shard, T_all, X_all))
         in_p = prob.edge_valid & (chi2_p <= gate) & (z > 0.0)
-        chi2_l, *_, min_z, _ = _lil_edge_terms(cam, T_all, lst, ledges, ledges.valid, False)
+        chi2_l, *_, min_z, _ = _lil_edge_terms(cam, T_all, lst, lshard, lshard.valid, False)
+        chi2_l, min_z = ranks.all_gather(chi2_l, min_z)
         in_l = ledges.valid & (chi2_l <= CHI2_LIL) & (min_z > 0.0)
         return in_p, in_l
 
-    T_all, X_all, lst = prob.T_cw, prob.X_w, lil_state
-    T_all, X_all, lst = lm_phase(T_all, X_all, lst, prob.edge_valid, ledges.valid,
-                                 schedule[0], True)
-    active_p, active_l = classify(T_all, X_all, lst)
-    T_all, X_all, lst = lm_phase(T_all, X_all, lst, active_p, active_l, schedule[1], False)
-    in_p, in_l = classify(T_all, X_all, lst)
-    return T_all, X_all, lst, in_p, in_l
+    state = lm_loop(normal_eqs(prob.edge_valid, ledges.valid, True), step,
+                    (prob.T_cw, prob.X_w, lil_state), schedule[0])
+    active_p, active_l = classify(*state)
+    state = lm_loop(normal_eqs(active_p, active_l, False), step, state, schedule[1])
+    return (*state, *classify(*state))

@@ -1,13 +1,16 @@
-"""The port's entry point and its converters from the JAX package's state
-run on the card unless the caller asks for the CPU, and the ctypes bindings of the CUDA kernels match the kernels' C
+"""The port's entry points (``SlamSystem``, ``apps.rgbd_tum``) and its
+converters from the JAX package's state run on the card unless the caller
+asks for the CPU, and the ctypes bindings of the CUDA kernels match the kernels' C
 signatures (a mismatch would otherwise show only on the card, as a cut
 pointer). CPU only; no XLA."""
 
 import ctypes
+import dataclasses
 import inspect
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -42,6 +45,40 @@ def test_default_config_runs_on_the_card_or_on_request():
     slam = SlamSystem(SlamConfig(), device="cpu")
     assert slam.kf_db is not None and slam.loop_closer is not None
     assert slam.kf_db.vocab.device == torch.device("cpu")
+
+
+def test_distributed_system_runs_on_the_card_or_on_request():
+    """``distributed=True`` constructs like the other configs: on the card
+    by default, on the CPU on request."""
+    cfg = dataclasses.replace(CFG, distributed=True)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            SlamSystem(cfg)
+    assert SlamSystem(cfg, device="cpu").device == torch.device("cpu")
+
+
+def test_app_runs_on_the_card_or_on_request(tmp_path, monkeypatch):
+    """``apps.rgbd_tum`` tracks on the card by default and on the CPU with
+    ``--device cpu``, here on one rendered 640x480 frame."""
+    from PIL import Image
+
+    from pslam_tpu_torch.apps.rgbd_tum import main
+    from pslam_tpu_torch.io.synthetic import render_sequence
+
+    gray, depth, _ = render_sequence(CFG.camera, n_frames=1, seed=0)
+    Image.fromarray(np.clip(gray[0], 0, 255).astype(np.uint8)).save(tmp_path / "rgb.png")
+    Image.fromarray(np.clip(depth[0] * 5000, 0, 65535).astype(np.uint16)).save(
+        tmp_path / "depth.png")
+    (tmp_path / "assoc.txt").write_text("0.0 rgb.png 0.0 depth.png\n")
+    (tmp_path / "settings.yaml").write_text("Camera.fx: 517.306408\n")
+    args = [str(tmp_path / "settings.yaml"), str(tmp_path), str(tmp_path / "assoc.txt"),
+            "one", "--no-lines", "--no-loop"]
+    monkeypatch.chdir(tmp_path)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main(args)
+    assert main(args + ["--device", "cpu"]) == 0
+    assert (tmp_path / "f_one.txt").read_text().count("\n") == 1
 
 
 CONVERTERS = sorted(

@@ -37,6 +37,13 @@ def test_every_module_imports_without_jax():
     assert proc.stdout.startswith("ok")
 
 
+def test_walk_covers_io_apps_parallel_and_trace():
+    """The modules ported last are among those imported with JAX blocked."""
+    for name in ("apps.rgbd_tum", "apps.visualize", "io.tum", "parallel.sharded_ba",
+                 "parallel.sharded_graph", "utils.trace"):
+        assert f"pslam_tpu_torch.{name}" in MODULES
+
+
 @pytest.mark.parametrize("path", sorted(PKG_DIR.rglob("*.py")), ids=lambda p: p.name)
 def test_no_jax_import_in_source(path):
     text = path.read_text()

@@ -238,8 +238,8 @@ def test_global_ba_matches_jax(world):
 
 
 def test_system_config_4_constructs():
-    """Only distributed still raises; the default config (BoW + loop
-    closing) builds its database and loop closer."""
+    """The default config (BoW + loop closing) builds its database and loop
+    closer."""
     tc = TCfg(orb=TOrb(n_features=256), caps=TCaps(**CAPS), **CFG_KW)
     ts = TSys(dataclasses.replace(tc, use_loop_closing=False), device="cpu")
     assert ts.kf_db is not None and ts.loop_closer is None

@@ -114,14 +114,11 @@ def test_trajectory_tum_format(runs, tmp_path):
     ("sensor", "stereo"), ("sensor", "mono"), ("distributed", True),
 ])
 def test_constructor_rejects_what_the_slice_does_not_cover(field, value):
-    """Only ``distributed=True`` is still rejected; the stereo and mono
-    sensors construct (on the CPU here)."""
+    """Every field constructs now (on the CPU here): the stereo and mono
+    sensors, and ``distributed=True``, which takes the plain solvers while
+    no process group of more than one rank runs."""
     kw = dict(CFG_KW)
     kw[field] = value
-    if field == "distributed":
-        with pytest.raises(NotImplementedError):
-            TSys(TCfg(**kw))
-    else:
-        ts = TSys(TCfg(**kw), device="cpu")
-        assert ts.cfg.sensor == value and ts.device.type == "cpu"
-        assert ts.state == TState.NO_IMAGES_YET
+    ts = TSys(TCfg(**kw), device="cpu")
+    assert getattr(ts.cfg, field) == value and ts.device.type == "cpu"
+    assert ts.state == TState.NO_IMAGES_YET
