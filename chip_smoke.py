@@ -116,9 +116,24 @@ non-zero exit and no result line):
    config 1 with ``distributed=True`` over phase 4's 60 frames, its
    trajectory bit-identical to phase 4's and every tracked frame through both
    kernels. The group is destroyed at the end.
+18. the long run: ``apps.run_long.run`` pipelined with the default config
+   (BASELINE config 4) over 300 frames of its double-loop circuit
+   (``loop_trajectory(300, loops=2.0)`` in ``ClosedRoom(seed=9)``, 640x480):
+   no reset, at least one loop closed, at least one keyframe culled, at
+   least one keyframe slot reused (``kf_inserted`` above the slots ever
+   used), ATE < 10 cm (scripts/run_long.py's bar), every tracked frame
+   through both kernels. Prints the evaluation row (times, peak device
+   memory, K1 and K2 launches per tracked frame).
+19. the low-texture ladder: ``apps.lowtex.run`` at its default 120 frames
+   (points, +lines, +LILs in ``LowTextureRoom(seed=5)``): every config
+   completes with a finite ATE; the +lines and +LILs runs hold map lines,
+   unless the system never initialized and no frame of the scene carries
+   the depth-backed features the RGB-D initialization needs (then no
+   kernel runs: nothing is tracked). Prints the three rows; no bar on which
+   config wins.
 
 The kernels' launch counters are set to 0 just before each main path
-(phases 4, 6, 10-14, 16 and 17, the relocalization call of phase 8 and the
+(phases 4, 6, 10-14, 16-19, the relocalization call of phase 8 and the
 resumed frames of phase 15) and read just after. The line before the last is a JSON
 object with one entry per kernel, its launches summed over those paths; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1733,6 +1748,62 @@ def _phase_distributed(device, fused_match, fused_pose, cfg, base, n_frames=60):
     return launches, n_frames - 1
 
 
+def _phase_long(device, fused_match, fused_pose, n_frames=300):
+    """``apps.run_long``'s function, pipelined, with the default config over
+    ``n_frames`` of its double-loop circuit. Returns (launches, tracked)."""
+    from pslam_tpu_torch.apps import run_long
+
+    _zero_counts(fused_match, fused_pose)
+    row = run_long.run(n_frames, pipelined=True, device=device)
+    launches = _counts(fused_match, fused_pose)
+    tracked = row["tracked"]
+    print(f"[18 long] config 4, {n_frames} frames pipelined on {device}: "
+          f"{json.dumps(row)}; launches {launches} {_per_frame(launches, tracked)}")
+    if row["resets"] != 0 or row["loops"] < 1:
+        raise AssertionError("18 long: a reset, or no loop closed")
+    if row["kf_culled"] < 1 or not row["kf_inserted"] > row["kf_slots"]:
+        raise AssertionError("18 long: no keyframe culled, or no keyframe slot reused")
+    if not row["ate_cm"] < run_long.ATE_BAR_M * 100:
+        raise AssertionError(f"18 long: ATE {row['ate_cm']:.3f} cm >= 10 cm")
+    _check_launches("18 long", device, launches, tracked)
+    return launches, tracked
+
+
+def _phase_lowtex(device, fused_match, fused_pose):
+    """``apps.lowtex`` at its default 120 frames: every config completes with
+    a finite ATE, and the +lines and +LILs runs hold map lines unless the
+    system never initialized, which must then be the RGB-D gate's doing: no
+    frame of the scene carries the depth-backed features it needs. Returns
+    the launches."""
+    from pslam_tpu_torch.apps import lowtex
+    from pslam_tpu_torch.pipeline.frame_ops import make_frame
+    from pslam_tpu_torch.utils.config import SlamConfig
+
+    _zero_counts(fused_match, fused_pose)
+    rows = lowtex.run(device=device)
+    launches = _counts(fused_match, fused_pose)
+    cfg = SlamConfig()
+    gate = min(500, cfg.orb.capacity // 2)  # SlamSystem._initialize
+    grays, depths, _ = lowtex.frames(cfg.camera, rows[0]["n_frames"])
+    n_depth = []
+    for g, d in zip(grays, depths):
+        fd = make_frame(torch.from_numpy(np.asarray(g, np.float32)).to(device),
+                        torch.from_numpy(np.asarray(d, np.float32)).to(device),
+                        cfg.camera, cfg.orb)
+        n_depth.append(int((fd.depth > 0).sum()))  # what _initialize counts
+    print(f"[19 lowtex] {len(grays)} frames on {device}: features with depth a frame "
+          f"{min(n_depth)}-{max(n_depth)} (the RGB-D initialization gate needs {gate}); "
+          f"launches {launches}")
+    for row in rows:
+        print(f"[19 lowtex] {json.dumps(row)}")
+        if not np.isfinite(row["ate_cm"]) or not np.isfinite(row["online_cm"]):
+            raise AssertionError(f"19 lowtex: {row['name']} has no finite ATE")
+        if row["name"] != "points" and row["map_lines"] < 1:
+            if row["kf_inserted"] > 0 or max(n_depth) >= gate:
+                raise AssertionError(f"19 lowtex: {row['name']} holds no map line")
+    return launches
+
+
 def _configs():
     """(config 1, config 3, the small config 1 of phase 5)."""
     from pslam_tpu_torch.geometry import Camera
@@ -1843,16 +1914,20 @@ def main():
     launches15 = _phase_checkpoint("cuda", fused_match, fused_pose, slam14, slam13, frames13)
     launches16, tracked16 = _phase_tum_app("cuda", fused_match, fused_pose, ms4)
     launches17, tracked17 = _phase_distributed("cuda", fused_match, fused_pose, cfg, slam4)
+    launches18, tracked18 = _phase_long("cuda", fused_match, fused_pose)
+    launches19 = _phase_lowtex("cuda", fused_match, fused_pose)
     # Launches: every path summed; per tracked frame: the paths that track
-    # every frame (phases 4, 6, 10-14, 16 runs 1 and 2, and 17).
+    # every frame (phases 4, 6, 10-14, 16 runs 1 and 2, 17 and 18).
     tracked_paths = ((launches, tracked), (launches3, tracked3), (launches10, tracked10),
                      (launches11, tracked11), (launches12, tracked12),
                      (launches13, tracked13), (launches14, tracked14),
-                     (launches16, tracked16), (launches17, tracked17))
+                     (launches16, tracked16), (launches17, tracked17),
+                     (launches18, tracked18))
     on_frames = {k: sum(l[k] for l, _ in tracked_paths) for k in launches}
     n_tracked = sum(n for _, n in tracked_paths)
     print(json.dumps({"kernels": _kernel_entries(
-        k1, k2, {k: on_frames[k] + launches8[k] + launches15[k] for k in launches},
+        k1, k2, {k: on_frames[k] + launches8[k] + launches15[k] + launches19[k]
+                 for k in launches},
         {k: v / n_tracked for k, v in on_frames.items()})}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
