@@ -131,6 +131,17 @@ non-zero exit and no result line):
    the depth-backed features the RGB-D initialization needs (then no
    kernel runs: nothing is tracked). Prints the three rows; no bar on which
    config wins.
+20. the stage profilers at full width: ``apps.profile_frame.run``,
+   ``apps.profile_backend.run`` and ``apps.roofline.run`` on the card, each
+   table printed under the card's ``nvidia-smi`` name and power limit (and
+   written to ``build/chip_smoke/``), each app in a spawned process of its
+   own (the profiler's trace degrades late in a long-profiled process), its
+   kernel launches counted in its rows. Every row finite, ``event_ms > 0``,
+   ``device_ms <= 1.05 x event_ms`` where the profiler measured it, every
+   share <= 1.05; ``track_against_points`` (and the roofline's match+pose)
+   1 K1 and 49 K2 launches a call; ``frame_step (real map)`` at least 2 K1
+   and 98 K2 a frame, as phase 4; the one-rank sharded rows bit-identical to
+   the plain ones (``max|dT|`` = 0).
 
 The kernels' launch counters are set to 0 just before each main path
 (phases 4, 6, 10-14, 16-19, the relocalization call of phase 8 and the
@@ -1804,6 +1815,81 @@ def _phase_lowtex(device, fused_match, fused_pose):
     return launches
 
 
+PROFILE_REPS = dict(frame=10, backend=5, ba=3, graph=2)  # the scripts' R are ceilings
+
+
+def _check_profile_rows(label, rows):
+    """Phase 20's bars on one app's rows."""
+    for r in rows:
+        nums = [v for k, v in r.items() if isinstance(v, (int, float)) and not isinstance(v, bool)]
+        if not all(np.isfinite(v) for v in nums):
+            raise AssertionError(f"20 {label}: {r['name']} has a non-finite number: {r}")
+        if not r["event_ms"] > 0:
+            raise AssertionError(f"20 {label}: {r['name']} event_ms {r['event_ms']}")
+        if isinstance(r["device_ms"], float) and r["device_ms"] > 1.05 * r["event_ms"]:
+            raise AssertionError(f"20 {label}: {r['name']} device {r['device_ms']} ms above "
+                                 f"1.05 x event {r['event_ms']} ms")
+        if r["share"] is None or r["share"] > 1.05:
+            raise AssertionError(f"20 {label}: {r['name']} share {r['share']}")
+
+
+def _in_own_process(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` in a fresh spawned process, which ends with
+    the call: the profiler's trace degrades after a few hundred thousand
+    activities in one process (utils/profile.py)."""
+    import multiprocessing
+
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(fn, args, kwargs)
+
+
+def _phase_profiles(device):
+    """The three stage profilers at full width on ``device`` (phase 20),
+    each app in a process of its own. Its launches are counted by the rows
+    (K1 / K2 a call), in those processes."""
+    from pslam_tpu_torch.apps import profile_backend, profile_frame, roofline
+    from pslam_tpu_torch.utils import profile as P
+
+    out = Path(__file__).resolve().parent / "build" / "chip_smoke"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    frame = _in_own_process(profile_frame.run, device, reps=PROFILE_REPS["frame"])
+    t1 = time.perf_counter()
+    backend = _in_own_process(profile_backend.run, device, reps=PROFILE_REPS["backend"],
+                              ba_reps=PROFILE_REPS["ba"], graph_reps=PROFILE_REPS["graph"])
+    t2 = time.perf_counter()
+    roof = _in_own_process(roofline.run, device, reps=PROFILE_REPS["frame"],
+                           ba_reps=PROFILE_REPS["ba"])
+    t3 = time.perf_counter()
+    tables = {
+        "profile_frame": P.table(frame, "Frame program (apps.profile_frame)", device),
+        "profile_backend": P.table(backend, "Backend (apps.profile_backend)", device),
+        "roofline": roofline.table(roof, device),
+    }
+    for name, text in tables.items():
+        (out / f"{name}.md").write_text(text)
+        print(text)
+    print(f"[20 profiles] profile_frame {t1 - t0:.1f} s, profile_backend {t2 - t1:.1f} s, "
+          f"roofline {t3 - t2:.1f} s (each in its own process); tables in {out}")
+    for label, rows in (("profile_frame", frame), ("profile_backend", backend),
+                        ("roofline", roof)):
+        _check_profile_rows(label, rows)
+    by_name = {r["name"]: r for r in frame + roof}
+    for name in ("track_against_points", "match+pose (motion model)"):
+        r = by_name[name]
+        if (r["k1"], r["k2"]) != (1, 49):
+            raise AssertionError(f"20 profiles: {name} launched K1 {r['k1']} and K2 {r['k2']} "
+                                 "times a call, not 1 and 49")
+    r = by_name["frame_step (real map)"]
+    if r["k1"] < 2 or r["k2"] < 98:
+        raise AssertionError(f"20 profiles: frame_step (real map) launched K1 {r['k1']} and "
+                             f"K2 {r['k2']} times a frame")
+    for r in backend:
+        if "max_dT" in r and r["max_dT"] != 0.0:
+            raise AssertionError(f"20 profiles: {r['name']} differs from the plain solver by "
+                                 f"{r['max_dT']}")
+
+
 def _configs():
     """(config 1, config 3, the small config 1 of phase 5)."""
     from pslam_tpu_torch.geometry import Camera
@@ -1916,6 +2002,7 @@ def main():
     launches17, tracked17 = _phase_distributed("cuda", fused_match, fused_pose, cfg, slam4)
     launches18, tracked18 = _phase_long("cuda", fused_match, fused_pose)
     launches19 = _phase_lowtex("cuda", fused_match, fused_pose)
+    _phase_profiles("cuda")
     # Launches: every path summed; per tracked frame: the paths that track
     # every frame (phases 4, 6, 10-14, 16 runs 1 and 2, 17 and 18).
     tracked_paths = ((launches, tracked), (launches3, tracked3), (launches10, tracked10),

@@ -40,8 +40,9 @@ def test_every_module_imports_without_jax():
 def test_walk_covers_io_apps_parallel_and_trace():
     """The modules ported last are among those imported with JAX blocked."""
     for name in ("apps.rgbd_tum", "apps.visualize", "apps.evaluate", "apps.run_long",
-                 "apps.ate_ladder", "apps.lowtex", "io.tum", "parallel.sharded_ba",
-                 "parallel.sharded_graph", "utils.trace"):
+                 "apps.ate_ladder", "apps.lowtex", "apps.profile_frame",
+                 "apps.profile_backend", "apps.roofline", "io.tum", "parallel.sharded_ba",
+                 "parallel.sharded_graph", "utils.trace", "utils.profile"):
         assert f"pslam_tpu_torch.{name}" in MODULES
 
 

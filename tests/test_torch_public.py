@@ -159,3 +159,21 @@ def test_search_in_neighbors_matches_jax():
     _assert_maps_match(mt, mj)
     assert int(mt.mp_valid.sum()) <= 120 - 40
     assert np.isin(mt.kf_feat_mp[k1, :60], ids0).sum() >= 40
+
+
+@pytest.mark.parametrize("name", ["profile_frame", "profile_backend", "roofline"])
+def test_profiling_apps_measure_the_card_by_default(name):
+    """Each profiling app (the counterparts of scripts/profile_frame.py +
+    bench_frame_step.py, profile_backend.py + bench_sharded.py and
+    roofline.py) has ``run(device="cuda", ...)`` and a ``main`` whose
+    ``--device`` defaults to the card and whose ``--out`` names the table's
+    file; no app writes ROOFLINE.md or SHARDED_r05.json."""
+    import importlib
+    import inspect
+
+    app = importlib.import_module(f"pslam_tpu_torch.apps.{name}")
+    assert inspect.signature(app.run).parameters["device"].default == "cuda"
+    src = inspect.getsource(app)
+    assert '"--out"' in src and '"--device", default="cuda"' in src
+    assert "ROOFLINE.md" not in src.replace("``ROOFLINE.md``", "")
+    assert "SHARDED_r05" not in src
