@@ -1,0 +1,354 @@
+"""One run of one cell of ``BENCHMARK.json``.
+
+Set-up (``setup_s``, from the process's start): import torch and the port,
+load K1 and K2 (built into ``build/pslam_tpu_torch/`` inside the checkout
+on a first run), render one pass of the traffic's sequence on the card and
+hold it in host memory as decoded frames, build ``SlamSystem`` from the
+configuration file and track the traffic's ``warm_frames`` on it.
+
+Window: the same stream goes on through ``SlamSystem.track_rgbd`` as a
+closed loop, each frame handed over when the previous pose has returned,
+until ``--seconds`` have passed; then one synchronize. The harness adds no
+other synchronize. ``--trace 1`` wraps the spans the cell's per-layer
+readers name, times them over the window, then profiles ``TRACE_FRAMES``
+more frames of the stream for the device metrics.
+
+After the window: the peak device memory is read, the map is flushed, the
+comparison decides ``correct`` (``check.py``), the program's state is
+freed, and the run fails if JAX or the JAX package was loaded.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib.util
+import json
+import math
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+BENCH = Path(__file__).resolve().parent
+ROOT = BENCH.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "pslam_tpu")
+TRACE_FRAMES = 6
+RENDER_BATCH = 16
+
+
+class NoResult(Exception):
+    """The run cannot give a result (exit code 2, nothing on stdout)."""
+
+
+def forbidden_modules(modules=None) -> list[str]:
+    """Top-level names of loaded modules that are JAX or the JAX package,
+    compared whole (``pslam_tpu_torch`` is not ``pslam_tpu``)."""
+    names = sys.modules if modules is None else modules
+    return sorted({m.split(".")[0] for m in names} & set(FORBIDDEN))
+
+
+def load_json(path: Path) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def resolve_cell(workload: str):
+    """(cell, configuration file, traffic file, end-to-end metrics, per-layer
+    metrics) of ``workload``, each found by its name."""
+    spec_path = ROOT / "BENCHMARK.json"
+    if not spec_path.exists():
+        raise NoResult(f"{spec_path} not found")
+    spec = load_json(spec_path)
+    cells = {w["name"]: w for w in spec["workloads"]}
+    if workload not in cells:
+        raise NoResult(f"no workload {workload!r} in BENCHMARK.json")
+    cell = cells[workload]
+    conf = {c["name"]: c for c in spec["configs"]}[cell["config"]]
+    cfg = load_json(ROOT / conf["file"])
+    traffic = load_json(BENCH / "traffic" / f"{cell['traffic']}.json")
+
+    def applies(metric):
+        return workload in metric.get("workloads", [workload])
+
+    e2e = [m for m in spec["end_to_end"] if applies(m)]
+    per_layer = [m for m in spec["per_layer"] if applies(m)]
+    return cell, cfg, traffic, e2e, per_layer
+
+
+def layer_reader(name: str):
+    """The reader module of per-layer metric ``name``:
+    ``slambench/layers/<name>.py``."""
+    path = BENCH / "layers" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"slambench_layer_{name.replace('.', '_')}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def slam_config(cfg: dict):
+    """The configuration file's ``slam`` block as a ``SlamConfig``: each
+    group replaces the defaults' fields of the same name; an unknown key
+    raises."""
+    from pslam_tpu_torch.utils.config import SlamConfig
+
+    base = SlamConfig()
+    s = dict(cfg["slam"])
+    groups = {g: dataclasses.replace(getattr(base, g), **s.pop(g))
+              for g in ("camera", "orb", "lines", "caps", "tracking", "plane_assoc") if g in s}
+    return dataclasses.replace(base, **groups, **s)
+
+
+def render_pass(cfg: dict, traffic: dict, seed: int, device):
+    """One pass of the sequence as decoded frames in host memory:
+    (grays, depths) lists of (H, W) float32 arrays."""
+    import torch
+
+    from slambench import scene
+    from slambench.traffic import path_poses
+
+    cam = cfg["slam"]["camera"]
+    room = scene.Room.from_seed(seed, device=device, **traffic["room"])
+    dist = tuple(cam[k] for k in ("k1", "k2", "p1", "p2", "k3"))
+    rays = scene.camera_rays((cam["fx"], cam["fy"], cam["cx"], cam["cy"]), cam["width"],
+                             cam["height"], dist, device)
+    poses = torch.from_numpy(path_poses(traffic))
+    grays, depths = [], []
+    for i in range(0, len(poses), RENDER_BATCH):
+        g, z = scene.render(room, rays, poses[i:i + RENDER_BATCH].to(device))
+        g, z = scene.sensor_frames(g, z, float(cfg["sensor"]["depth_map_factor"]))
+        grays.extend(g.cpu().numpy())
+        depths.extend(z.cpu().numpy())
+    return grays, depths
+
+
+def _map_arrays(m) -> dict:
+    keys = ("kf_valid", "kf_pose", "kf_frame_id", "kf_uv", "kf_level", "kf_desc", "kf_feat_depth",
+            "kf_feat_mp",
+            "kf_feat_valid", "mp_valid", "mp_pos")
+    return {k: getattr(m, k)[: m.n_kf] if k.startswith("kf_") else getattr(m, k) for k in keys}
+
+
+def _counters(slam) -> dict:
+    c = {k: int(v) for k, v in slam.stats.items()}
+    if slam.loop_closer is not None:
+        c["loops_closed"] = int(slam.loop_closer.stats.get("closed", 0))
+    return c
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+class LayerRun:
+    """What a per-layer reader reads: the spans, the device trace of the
+    profiled frames, and the program's counters over the window."""
+
+    def __init__(self, spans, trace, counters):
+        self.spans, self.trace, self.counters = spans, trace, counters
+
+    def counter(self, key: str) -> int:
+        return int(self.counters.get(key, 0))
+
+
+def run(workload: str, seed: int, seconds: float, trace: bool, *, process_age=None,
+        control: bool = False, device: str = "cuda", config_override: dict | None = None,
+        traffic_override: dict | None = None) -> dict:
+    """One run; returns the result object (``checks`` last). With
+    ``control`` the control's readings are judged in the program's place and
+    decide ``correct``; the program's verdict goes on an earlier line. The
+    tests pass the CPU and small stand-ins for the cell's files."""
+    t_start = time.perf_counter()
+    age0 = process_age() if process_age is not None else 0.0
+    cell, cfg, traffic, e2e, per_layer = resolve_cell(workload)
+    if config_override is not None:
+        cfg = config_override
+    if traffic_override is not None:
+        traffic = traffic_override
+
+    import torch
+
+    if device == "cuda":
+        if not torch.cuda.is_available():
+            raise NoResult("CUDA is not available")
+        if torch.cuda.device_count() < int(cell["chips"]):
+            raise NoResult(f"{torch.cuda.device_count()} CUDA devices, the cell needs "
+                           f"{cell['chips']}")
+    import pslam_tpu_torch  # noqa: F401  (TF32 off, package-wide)
+    from pslam_tpu_torch.ops import _build, fused_match, fused_pose
+    from pslam_tpu_torch.pipeline.system import SlamSystem, TrackState
+
+    from slambench import check, stats
+    from slambench.trace import Spans, device_trace
+    from slambench.traffic import replay_index
+
+    parts = {"imports": time.perf_counter() - t_start}
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        for name in ("fused_match", "fused_pose"):
+            _build.library(name)
+    parts["kernels"] = time.perf_counter() - t_start - sum(parts.values())
+    grays, depths = render_pass(cfg, traffic, seed, dev)
+    parts["render"] = time.perf_counter() - t_start - sum(parts.values())
+    n_pass = len(grays)
+    fps = float(cfg["sensor"]["fps"])
+
+    def seq(i: int) -> int:
+        return replay_index(traffic, n_pass, i)
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    readers = {m["name"]: layer_reader(m["name"]) for m in per_layer} if trace else {}
+    spans = Spans()
+    if trace:
+        seen = set()
+        for r in readers.values():
+            for target, name, *cap in r.SPANS:
+                if (target, name) not in seen:
+                    seen.add((target, name))
+                    spans.install(target, name, cap[0] if cap else None)
+
+    slam = SlamSystem(slam_config(cfg), device=device)
+    parts["system"] = time.perf_counter() - t_start - sum(parts.values())
+    warm = int(traffic["warm_frames"])
+    for i in range(warm):
+        k = seq(i)
+        slam.track_rgbd(grays[k], depths[k], i / fps)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+    # The window.
+    before = _counters(slam)
+    launches0 = (fused_match.LAUNCHES, fused_pose.LAUNCHES)
+    spans.timing = trace
+    frames, latency = [], []
+    i = warm
+    t0 = time.perf_counter()
+    parts["warm"] = t0 - t_start - sum(parts.values())
+    parts["before_main"] = age0
+    setup_s = age0 + (t0 - t_start)
+    while True:
+        k = seq(i)
+        a = time.perf_counter()
+        T = slam.track_rgbd(grays[k], depths[k], i / fps)
+        b = time.perf_counter()
+        latency.append(b - a)
+        frames.append((i, np.array(T, np.float64), slam.state == TrackState.OK))
+        i += 1
+        if b - t0 >= seconds:
+            break
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    window_s = time.perf_counter() - t0
+    spans.timing = False
+    counters = _delta(_counters(slam), before)
+    launches = (fused_match.LAUNCHES - launches0[0], fused_pose.LAUNCHES - launches0[1])
+
+    dtrace = None
+    if trace:
+        from torch.profiler import ProfilerActivity, profile
+
+        spans.capture = True
+        acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        with profile(activities=acts) as prof:
+            p0 = time.perf_counter()
+            for _ in range(TRACE_FRAMES):
+                k = seq(i)
+                T = slam.track_rgbd(grays[k], depths[k], i / fps)
+                frames.append((i, np.array(T, np.float64), slam.state == TrackState.OK))
+                i += 1
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            traced_s = time.perf_counter() - p0
+        spans.capture = False
+        dtrace = device_trace(prof, traced_s)
+        del prof
+
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+    # End-to-end metrics (the window alone).
+    n_win = len(latency)
+    head_frames = int(traffic["head_frames"])
+    e2e_values = {
+        "setup_s": setup_s,
+        "frames_per_s": stats.rate(n_win, window_s),
+        "frame_ms_p90": stats.p90(latency) * 1e3,
+    }
+    layer_values = {}
+    if trace:
+        lr = LayerRun(spans, dtrace, counters)
+        for name, r in readers.items():
+            v = r.read(lr)
+            if v is not None:
+                layer_values[name] = (float(v), next(m["unit"] for m in per_layer
+                                                     if m["name"] == name))
+    spans.remove()
+
+    # The comparison, on what the window (and the traced frames) produced.
+    slam.flush()
+    m = _map_arrays(slam.map)
+    failed = sum(not ok for _, _, ok in frames[:n_win]) + max(0, head_frames - n_win)
+    def image_of(i: int):
+        return grays[seq(i)]
+
+    values = check.readings(cfg, traffic, seed, frames, m, seq, warm, image_of)
+    correct, rows = check.judge(values, cfg["limits"])
+    if control:
+        # The reference computed in TF32 in the program's place, judged as
+        # the program is: the precision numbers are the control's.
+        print(json.dumps({"program": {"correct": correct, "checks": values}}))
+        values = {**values,
+                  **check.control_readings(cfg, traffic, seed, frames, m, seq, warm, image_of)}
+        correct, rows = check.judge(values, cfg["limits"])
+    del slam
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    print(json.dumps({"seed": seed, "counters": counters, "window_frames": n_win,
+                      "window_s": window_s, "traced_frames": TRACE_FRAMES if trace else 0,
+                      "k1_per_frame": launches[0] / n_win, "k2_per_frame": launches[1] / n_win,
+                      "frame_ms_median": float(np.median(latency)) * 1e3,
+                      "frame_ms_max": float(np.max(latency)) * 1e3,
+                      "memory_peak_mib": peak / 2**20, "first_pass_frames": n_pass,
+                      "setup_parts_s": parts, "stream_frames": i}))
+    if trace and dtrace is not None:
+        print(json.dumps({"trace": {"activities": len(dtrace.activities),
+                                    "unlinked": sum(a[3] is None for a in dtrace.activities),
+                                    "ranges": {k: len(v) for k, v in dtrace.ranges.items()},
+                                    "busy_s": dtrace.busy_s(), "window_s": dtrace.window_s}}))
+
+    wanted = e2e if not trace else per_layer
+    if trace:
+        metrics = {m_["name"]: {"value": layer_values[m_["name"]][0], "unit": m_["unit"]}
+                   for m_ in per_layer if m_["name"] in layer_values}
+    else:
+        metrics = {m_["name"]: {"value": finite(e2e_values[m_["name"]]), "unit": m_["unit"]}
+                   for m_ in wanted}
+    dev_info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
+                "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu",
+                "count": 1, "memory_peak_bytes": int(peak)}
+    result = {"correct": bool(correct), "attempted": n_win, "failed": int(failed),
+              "metrics": metrics, "device": dev_info}
+    if trace and dtrace is not None:
+        dev_info["busy_s"] = dtrace.busy_s()
+        dev_info["window_s"] = dtrace.window_s
+        order = ["system", "tracking", "mapping", "local_ba", "local_ba_commit", "loop", "k1", "k2"]
+        result["breakdown"] = {"device_ops": dtrace.top_ops(),
+                               "idle_gaps": dtrace.idle_gaps([s for s in order
+                                                              if s in dtrace.ranges])}
+    result["checks"] = {name: {"value": finite(v), "limit": lim} for name, v, lim, _ in rows}
+    bad = forbidden_modules()
+    if bad:
+        raise NoResult(f"modules of JAX or the JAX package were loaded: {bad}")
+    for name, v, lim, ok in rows:
+        print(f"check {name} = {v!r} limit {lim!r} {'ok' if ok else 'FAILED'}", file=sys.stderr)
+    return result
+
+
+def finite(x):
+    """A number for the result line: JSON has no infinity."""
+    return x if math.isfinite(x) else None

@@ -1,0 +1,65 @@
+"""Faults planted in the port, each a way in which a cell's timed path can
+go wrong; ``correct`` has to come out false under every one of them.
+
+``plant`` patches the port's classes for the rest of the process, so it is
+called in a process of its own (``drive.py``), from the first frame after
+the warm-up on:
+
+- ``state_unchanged``: the tracking step returns the last pose and does
+  nothing else (no keyframe is made);
+- ``stale_pose``: the tracking step runs in full, keyframes included, but
+  the pose it hands on is the last one, so the stream's poses and the
+  window's keyframes stay where the warm-up left them;
+- ``half_left_out``: every second feature's depth reads 0;
+- ``answer_altered``: every depth is read 0.1% long.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+FAULTS = ("state_unchanged", "stale_pose", "half_left_out", "answer_altered")
+
+
+def plant(fault: str, warm: int) -> None:
+    import torch
+
+    from pslam_tpu_torch.pipeline import frame_ops, frame_step, system
+
+    S = system.SlamSystem
+    if fault == "state_unchanged":
+        real_track = S._track_fused
+
+        def track(self, gray_d, depth_d, timestamp):
+            if self.frame_id < warm:
+                return real_track(self, gray_d, depth_d, timestamp)
+            return system.HostFrame(frame_id=self.frame_id, timestamp=float(timestamp),
+                                    T_cw=self.last.T_cw.copy())
+
+        S._track_fused = track
+    elif fault == "stale_pose":
+        real_step = S._frame_step
+
+        def step(self, *a):
+            out = real_step(self, *a)
+            if self.frame_id < warm:
+                return out
+            summary = out.summary.clone()
+            summary[frame_step.S_T] = torch.as_tensor(self.last.T_cw.reshape(16),
+                                                      dtype=summary.dtype, device=summary.device)
+            return out._replace(summary=summary)
+
+        S._frame_step = step
+    elif fault in ("half_left_out", "answer_altered"):
+        real_gather = frame_ops.gather_pixels
+
+        def gather(img, y, x):
+            z = real_gather(img, y, x)
+            if fault == "answer_altered":
+                return z * (1 + 1e-3)
+            keep = torch.as_tensor(np.arange(z.shape[0]) % 2 == 0, dtype=z.dtype, device=z.device)
+            return z * keep
+
+        frame_ops.gather_pixels = gather
+    else:
+        raise ValueError(f"unknown fault {fault!r}")
