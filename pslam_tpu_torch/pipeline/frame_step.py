@@ -38,6 +38,7 @@ from pslam_tpu_torch.pipeline.track_ops import (
     track_local_map_step,
 )
 from pslam_tpu_torch.solver.lil import LILPoseObs
+from pslam_tpu_torch.utils.trace import span
 
 
 class LineSnap(NamedTuple):
@@ -172,13 +173,15 @@ def frame_step(cfg, gray, depth, T_prev, velocity, motion_radius, snap, acc) -> 
     ``motion_radius`` lets the host re-run the step with the widened window
     (Tracking.cc:1198-1203) when the first attempt returns few inliers.
     With ``cfg.sensor == "stereo"``, ``depth`` carries the right image."""
-    if cfg.sensor == "stereo":
-        fd = make_frame_stereo(gray, depth, cfg.camera, cfg.orb)
-    else:
-        fd = make_frame(gray, depth, cfg.camera, cfg.orb)
+    with span("track.orb"):
+        if cfg.sensor == "stereo":
+            fd = make_frame_stereo(gray, depth, cfg.camera, cfg.orb)
+        else:
+            fd = make_frame(gray, depth, cfg.camera, cfg.orb)
     fl = None
     if cfg.use_lines:
-        fl = make_frame_lines(gray, depth, cfg.camera, cfg.lines, cfg.caps.frame_lils)
+        with span("track.lines"):
+            fl = make_frame_lines(gray, depth, cfg.camera, cfg.lines, cfg.caps.frame_lils)
     return track_frame(cfg, fd, T_prev, velocity, motion_radius, snap, acc, fl)
 
 
@@ -190,10 +193,11 @@ def track_frame(cfg, fd: FrameData, T_prev, velocity, motion_radius,
     T_pred = velocity @ T_prev
     # Motion-window step WITHOUT the scale/view-angle frustum gates
     # (TrackWithMotionModel, Tracking.cc:1164).
-    res1 = track_against_points(
-        cam, T_pred, snap.pts, fd, motion_radius, orb.scale, orb.levels,
-        check_scale=False,
-    )
+    with span("track.motion"):
+        res1 = track_against_points(
+            cam, T_pred, snap.pts, fd, motion_radius, orb.scale, orb.levels,
+            check_scale=False,
+        )
 
     lil_obs = None
     lil_match = torch.full((cfg.caps.frame_lils,), -1, dtype=torch.int64, device=dev)
@@ -203,16 +207,18 @@ def track_frame(cfg, fd: FrameData, T_prev, velocity, motion_radius,
         )
 
     prior = torch.where(res1.inlier & (res1.match_point >= 0), res1.match_point, -1)
-    res2 = track_local_map_step(
-        cam, res1.T_cw, snap.pts, fd, prior, cfg.tracking.local_match_radius,
-        orb.scale, orb.levels, lil=lil_obs,
-    )
+    with span("track.local_map"):
+        res2 = track_local_map_step(
+            cam, res1.T_cw, snap.pts, fd, prior, cfg.tracking.local_match_radius,
+            orb.scale, orb.levels, lil=lil_obs,
+        )
 
     L = acc.ml_vis.shape[0]
     line_match = torch.full((L,), -1, dtype=torch.int64, device=dev)
     line_vis = torch.zeros(L, dtype=torch.bool, device=dev)
     if cfg.use_lines and snap.lines is not None:
-        line_match, line_vis = _match_local_lines(cam, res2.T_cw, snap.lines, fl, 8.0)
+        with span("track.line_match"):
+            line_match, line_vis = _match_local_lines(cam, res2.T_cw, snap.lines, fl, 8.0)
 
     # --- keyframe-decision counts (NeedNewKeyFrame, Tracking.cc:1452) ------
     matched = (res2.match_point >= 0) & res2.inlier

@@ -35,6 +35,7 @@ from pslam_tpu_torch.ops.match import (
 from pslam_tpu_torch.pipeline.frame_ops import FrameData
 from pslam_tpu_torch.solver.lil import LIL_TRACK_WEIGHT, LILPoseObs
 from pslam_tpu_torch.solver.pose_opt import PoseObs, pose_optimization
+from pslam_tpu_torch.utils.trace import span
 
 
 class PointSet(NamedTuple):
@@ -178,7 +179,8 @@ def track_against_points(
     )
     sigma2 = scale_sigma2_arr(orb_scale, orb_levels, T_pred.device)
     po = _pose_obs_from_matches(pts, frame, match_idx, sigma2)
-    T_opt, inlier, _, _ = pose_optimization(cam, T_pred, po)
+    with span("track.pose"):
+        T_opt, inlier, _, _ = pose_optimization(cam, T_pred, po)
     return _result(T_opt, match_idx, po, inlier, visible)
 
 
@@ -203,7 +205,8 @@ def track_against_points_unwindowed(
     match_idx = torch.where(keep, idx, -1)
     sigma2 = scale_sigma2_arr(orb_scale, orb_levels, T_prior.device)
     po = _pose_obs_from_matches(pts, frame, match_idx, sigma2)
-    T_opt, inlier, _, _ = pose_optimization(cam, T_prior, po)
+    with span("track.pose"):
+        T_opt, inlier, _, _ = pose_optimization(cam, T_prior, po)
     return _result(T_opt, match_idx, po, inlier, pts.valid)
 
 
@@ -285,5 +288,6 @@ def track_local_map_step(
     match_idx = torch.where(match_idx >= 0, match_idx, prior_match_idx)
     sigma2 = scale_sigma2_arr(orb_scale, orb_levels, T_init.device)
     po = _pose_obs_from_matches(local_pts, frame, match_idx, sigma2)
-    T_opt, inlier, _, lil_inlier = pose_optimization(cam, T_init, po, lil=lil)
+    with span("track.pose"):
+        T_opt, inlier, _, lil_inlier = pose_optimization(cam, T_init, po, lil=lil)
     return _result(T_opt, match_idx, po, inlier, visible, lil, lil_inlier)

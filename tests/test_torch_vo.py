@@ -9,7 +9,8 @@ the JAX package, at 320x240 with 500 ORB features.
   view, and back), with 8 yaw steps out instead of 14, then
   tests/test_round4.py's freeze checks: a blackout ends in LOST without a
   reset, and a revisited view relocalizes. Both packages run it; per frame
-  the same state and mbVO flag, centres within 1 cm, and the same stats.
+  the same state and mbVO flag, centres within 1 cm, and the same stats
+  (the port's tracking counters aside).
 
 The JAX keypoint top-k is pinned to ``lax.top_k`` and its local BA runs the
 scatter assembly (``PSLAM_BA_ONEHOT=0``), with fresh jit caches."""
@@ -171,7 +172,10 @@ def test_localization_only_runs_identical(runs):
     worst = max(r[4] for r in rows)
     print(f"localization-only run: max centre difference {worst * 1e3:.3f} mm; stats {ts.stats}")
     assert worst <= 0.01, [round(r[4], 5) for r in rows]
-    assert ts.stats == js.stats
+    # The port also counts its tracked frames and frame_step runs; JAX does not.
+    track = {"track_frames", "track_steps", "track_retries", "track_fallbacks"}
+    assert ts.stats.keys() - js.stats.keys() <= track
+    assert {k: v for k, v in ts.stats.items() if k not in track} == js.stats
 
 
 def test_vo_survives_leaving_the_map(runs):
