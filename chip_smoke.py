@@ -27,11 +27,22 @@ non-zero exit and no result line):
    (``_k2_chi2_bound``); an all-inactive input gives H = 0,
    b = 0 and cost = 0 exactly;
    two launches of one input bit-identical. Times and bound as in phase 2.
+3b. the LM step (the second kernel of ``csrc/fused_pose.cu``) against
+   ``lm_step_plain`` on 264 random states, every mix of first evaluation,
+   accept / reject / NaN evaluation, closing step and LIL terms: the state
+   rows bit-identical (so every accept / reject decision equal), the
+   proposals within rtol 2e-4 / atol 1e-5; whole ``pose_optimization``
+   solves on the card against the CPU (rotation and translation <= 1e-4,
+   inlier masks equal; N = 300, 1000, 4096, with 8 LILs, and from the
+   identity with the unmatched slots at the origin), 49 K2 and 44 LM
+   launches a solve; 98 K2 and 88 LM launches (``stats["pose_lm_steps"]``)
+   a one-step frame of the 320x240 configs 1 and 3; the step's times.
 4. the slice: ``SlamSystem(SlamConfig(use_lines=False, use_bow=False,
    use_loop_closing=False), device="cuda")`` at 640x480 with default
    capacities over 60 synthetic frames; every frame tracked, >= 3 keyframes,
    >= 1 local BA, ATE < 5 cm, and the launch counters prove that every
-   tracked frame went through both kernels.
+   tracked frame went through all three kernels (2 K1, 98 K2 and 88 LM
+   steps at least), ``stats["pose_lm_steps"]`` equal to the LM launches.
 5. the same slice, small (320x240, 8 frames), on the card and on the CPU:
    the same tracking states and keyframes, camera centres within 2 cm.
 6. the structural-line slice: ``SlamSystem(SlamConfig(use_bow=False,
@@ -40,7 +51,7 @@ non-zero exit and no result line):
    local BA) at 640x480 with default capacities and line settings over 60
    frames; every frame tracked, >= 3 keyframes, >= 1 local BA with LIL
    edges, map lines, LIL landmarks with one re-observed, ATE < 5 cm, and
-   every tracked frame through both kernels.
+   every tracked frame through all three kernels, as in phase 4.
 7. the structural-line slice, small (320x240, 8 frames, 8 px line tiles),
    twice on the card and once on the CPU: the two card runs bit-identical
    (poses and every map array), card vs CPU the same states and keyframes
@@ -49,8 +60,8 @@ non-zero exit and no result line):
    (``SlamConfig(use_lines=False)`` with BoW, ``reset_if_lost_with_kfs=0``,
    ``kf_max_interval=3``, 640x480): 10 arc frames, then the tracker is
    declared LOST and shown frame 3 again. One relocalization, the centre
-   within 5 cm of the truth, the next frame OK, and both kernels launched by
-   the relocalization call.
+   within 5 cm of the truth, the next frame OK, and all three kernels
+   launched by the relocalization call.
 9. loop closing, card vs CPU: the hand-built drifted world of
    tests/test_loop_closing.py (built in numpy with the port's ``se3_exp`` and
    ``project``) through ``LoopCloser.on_new_keyframe``, twice on the card and
@@ -72,14 +83,14 @@ non-zero exit and no result line):
    >= 3 keyframes, >= 1 local BA, ATE < 6 cm (tests/test_round5.py's bar),
    the median relative stereo depth error on tests/test_round5.py's frame
    (``BoxRoom(seed=1)``) < 2% against the rendered depth, every tracked
-   frame through both kernels.
+   frame through all three kernels.
 12. monocular: ``track_mono`` with ``SlamConfig(sensor="mono",
    use_lines=False, use_loop_closing=False)`` at 640x480 on
    tests/test_round4.py's sequence (``render_sequence(n_frames=14,
    seed=6)``; a 30-frame render is another arc, 14/30 the step, on which
    both packages initialize only at frame 16 and miss the bar): the two-view
    initialization succeeds and every later frame is OK, every keyframe depth
-   is 0, scale-aligned ATE < 8 cm, both kernels on every all-mono frame;
+   is 0, scale-aligned ATE < 8 cm, all three kernels on every all-mono frame;
    then ``initialize_two_view`` twice on the card on the run's own input:
    bit-identical, or the difference printed and held below 1e-5.
 13. localization-only mode: tests/test_round5.py's excursion
@@ -91,8 +102,9 @@ non-zero exit and no result line):
 14. pipelined: config 1 over the 60-frame arc through
    ``track_rgbd_pipelined`` + ``finish()``, beside a synchronous run: 60
    trajectory rows, ATE < 5 cm and < max(2.5 x sync, 3 cm), the mixed-mode
-   drain of tests/test_round4.py. Prints both runs' median ms per call and
-   wall ms/frame (no bar).
+   drain of tests/test_round4.py, every tracked frame through all three
+   kernels and ``stats["pose_lm_steps"]`` equal to the LM launches in both
+   runs. Prints both runs' median ms per call and wall ms/frame (no bar).
 15. checkpoint: ``save_checkpoint`` / ``load_checkpoint`` on the card of the
    phase-14 system and of phase 13's frozen config-4 system: every map array
    and the poses equal after the load; the resumed config-4 system (which
@@ -105,7 +117,7 @@ non-zero exit and no result line):
    has no PIL), then ``apps.rgbd_tum.main`` on the card twice: with
    ``--no-lines --no-loop --kitti`` and with its default flags (config 4 from
    the settings file). Each: every frame OK, f/kf (and KITTI) files of the
-   right shapes, ATE < 5 cm, every tracked frame through both kernels; prints
+   right shapes, ATE < 5 cm, every tracked frame through all three kernels; prints
    the app's tracking-time summary and StageTimers report beside phase 4's
    median, and the PNG decode time. ``dump_map_ply`` and ``dump_map_npz`` of
    run 2's map, the NPZ read back equal to the map's arrays.
@@ -122,8 +134,8 @@ non-zero exit and no result line):
    no reset, at least one loop closed, at least one keyframe culled, at
    least one keyframe slot reused (``kf_inserted`` above the slots ever
    used), ATE < 10 cm (scripts/run_long.py's bar), every tracked frame
-   through both kernels. Prints the evaluation row (times, peak device
-   memory, K1 and K2 launches per tracked frame).
+   through all three kernels. Prints the evaluation row (times, peak device
+   memory, K1, K2 and LM step launches per tracked frame).
 19. the low-texture ladder: ``apps.lowtex.run`` at its default 120 frames
    (points, +lines, +LILs in ``LowTextureRoom(seed=5)``): every config
    completes with a finite ATE; the +lines and +LILs runs hold map lines,
@@ -143,7 +155,8 @@ non-zero exit and no result line):
    and 98 K2 a frame, as phase 4; the one-rank sharded rows bit-identical to
    the plain ones (``max|dT|`` = 0).
 
-The kernels' launch counters are set to 0 just before each main path
+The kernels' launch counters (K1, K2 and the LM step) are set to 0 just
+before each main path
 (phases 4, 6, 10-14, 16-19, the relocalization call of phase 8 and the
 resumed frames of phase 15) and read just after. The line before the last is a JSON
 object with one entry per kernel, its launches summed over those paths; the
@@ -605,6 +618,252 @@ def _phase_k2(fused_pose, dev):
     return dict(max_abs_err=worst, **t)
 
 
+def _lm_inputs(rng, first, outcome, close, with_lil):
+    """One random LM step input (CPU tensors): the state row, K2's terms at
+    the proposal, the LIL terms or None, and the (2, 128) rows [proposal,
+    classify]. ``outcome`` is "accept", "reject" or "nan" (a NaN evaluation,
+    H and cost NaN)."""
+    from pslam_tpu_torch.geometry import Camera, se3_exp
+    from pslam_tpu_torch.ops import fused_pose as fp
+
+    def terms(scale):
+        J = rng.normal(size=(40, 6)) * np.array([500, 500, 500, 100, 100, 100]) * scale
+        return (torch.from_numpy((J.T @ J).astype(np.float32)),
+                torch.from_numpy((rng.normal(size=6) * 1e3 * scale).astype(np.float32)),
+                torch.tensor(rng.uniform(50, 500) * scale, dtype=torch.float32))
+
+    def pose(s0, s1):
+        xi = np.r_[rng.normal(0, s0, 3), rng.normal(0, s1, 3)].astype(np.float32)
+        return se3_exp(torch.from_numpy(xi))
+
+    cam = Camera(fx=517.3, fy=516.5, cx=318.6, cy=255.3, bf=40.0)
+    T = pose(0.05, 0.2)
+    rows = fp.lm_rows(cam, T)
+    H, b, cost = terms(1.0)
+    state = rows[0]
+    state[fp.LM_LAM] = 10.0 ** rng.uniform(-6, 2)
+    state[fp.LM_COST] = cost
+    state[fp.LM_H:fp.LM_H + 36] = H.reshape(36)
+    state[fp.LM_B:fp.LM_B + 6] = b
+    state[fp.LM_FIRST] = 1.0 if first else 0.0
+    if not first:
+        rows[1, :16] = (pose(0.01, 0.03) @ T).reshape(16)
+    H_new, b_new, cost_new = terms(1.0)
+    if outcome == "accept":
+        cost_new = cost * 0.5
+    elif outcome == "reject":
+        cost_new = cost * 2.0
+    else:
+        H_new = torch.full_like(H_new, float("nan"))
+        cost_new = torch.tensor(float("nan"))
+    lil = terms(0.01) if with_lil else None
+    return state, (H_new, b_new, cost_new), lil, rows[1:].clone(), close
+
+
+def _lm_run(fused_pose, inp, dev):
+    """One LM step on ``dev`` (the plain version on the CPU); returns the
+    state and the rows, on the CPU."""
+    state, (H, b, cost), lil, rows, close = inp
+    state, rows = state.clone().to(dev), rows.clone().to(dev)
+    H, b, cost = H.to(dev), b.to(dev), cost.to(dev)
+    lil = None if lil is None else tuple(t.to(dev) for t in lil)
+    par, par_cls = rows[0:1], rows[1:2]
+    if close:
+        fused_pose.lm_step(state, H, b, cost, par, par_cls, lil=lil, close=True)
+    else:
+        fused_pose.lm_step(state, H, b, cost, par, par, lil=lil)
+    return state.cpu().numpy(), rows.cpu().numpy()
+
+
+def _solve_problem(rng, N, with_lil, origin=False):
+    """(T0, PoseObs, LILPoseObs or None) in numpy-built CPU tensors: noisy
+    RGB-D / mono observations with 10% outliers, T0 ~0.01 rad and ~3 cm off
+    the truth (tests/test_torch_fused_pose.py's generator); with
+    ``with_lil`` 8 LILs seen exactly from the truth (tests/test_torch_lil.py's
+    construction), one of them with its crosspoint 300 px off. With
+    ``origin`` the solve starts at the identity, as the first frame after a
+    map's initialization does, and the unmatched slots hold the world origin,
+    as empty map slots do."""
+    from pslam_tpu_torch.geometry import se3_exp
+    from pslam_tpu_torch.solver.lil import LILPoseObs
+    from pslam_tpu_torch.solver.pose_opt import PoseObs
+
+    def pose(s0, s1):
+        xi = np.r_[rng.normal(0, s0, 3), rng.normal(0, s1, 3)].astype(np.float32)
+        return se3_exp(torch.from_numpy(xi)).numpy()
+
+    fx, fy, cx, cy, bf = 517.3, 516.5, 318.6, 255.3, 40.0
+    T = pose(0.05, 0.2)
+    X = rng.uniform([-2, -2, 1], [2, 2, 8], (N, 3)).astype(np.float32)
+    Xc = X @ T[:3, :3].T + T[:3, 3]
+    u = fx * Xc[:, 0] / Xc[:, 2] + cx + rng.normal(0, 1, N)
+    v = fy * Xc[:, 1] / Xc[:, 2] + cy + rng.normal(0, 1, N)
+    ur = u - bf / Xc[:, 2] + rng.normal(0, 0.5, N)
+    ur[rng.uniform(size=N) < 0.3] = -1.0
+    bad = rng.uniform(size=N) < 0.1
+    u[bad] += rng.uniform(-60, 60, bad.sum())
+    v[bad] += rng.uniform(-60, 60, bad.sum())
+    po = PoseObs(X_w=torch.from_numpy(X),
+                 obs=torch.from_numpy(np.stack([u, v, ur], 1).astype(np.float32)),
+                 inv_sigma2=torch.from_numpy(rng.uniform(0.3, 1.0, N).astype(np.float32)),
+                 valid=torch.from_numpy(rng.uniform(size=N) > 0.15))
+    T0 = torch.from_numpy(pose(0.01, 0.03) @ T)
+    if origin:
+        T = pose(0.01, 0.03)
+        po = po._replace(X_w=torch.from_numpy(np.where(po.valid.numpy()[:, None], X, 0.0)
+                                              .astype(np.float32)))
+        Xc = X @ T[:3, :3].T + T[:3, 3]
+        u = fx * Xc[:, 0] / Xc[:, 2] + cx + rng.normal(0, 1, N)
+        v = fy * Xc[:, 1] / Xc[:, 2] + cy + rng.normal(0, 1, N)
+        obs = po.obs.numpy().copy()
+        obs[:, 0], obs[:, 1] = u, v
+        obs[:, 2] = np.where(obs[:, 2] >= 0, u - bf / Xc[:, 2], -1.0)
+        po = po._replace(obs=torch.from_numpy(obs.astype(np.float32)))
+        T0 = torch.eye(4)
+    if not with_lil:
+        return T0, po, None
+
+    def line(a, b_):
+        la, lb, lc = a[1] - b_[1], b_[0] - a[0], a[0] * b_[1] - a[1] * b_[0]
+        return np.array([la, lb, lc]) / np.hypot(la, lb)
+
+    states, obs = [], []
+    for _ in range(8):
+        Xi = rng.uniform([-1.5, -1.0, 3.0], [1.5, 1.0, 6.0])
+        d1 = rng.normal(size=3)
+        d1 /= np.linalg.norm(d1)
+        d2 = rng.normal(size=3)
+        d2 -= d1 * (d1 @ d2)
+        d2 /= np.linalg.norm(d2)
+        st = np.concatenate([Xi - 0.5 * d1, Xi + 0.7 * d1, Xi - 0.6 * d2, Xi + 0.4 * d2, Xi])
+        P = st.reshape(5, 3) @ T[:3, :3].T.astype(np.float64) + T[:3, 3]
+        uv = np.stack([fx * P[:, 0] / P[:, 2] + cx, fy * P[:, 1] / P[:, 2] + cy], 1)
+        states.append(st)
+        obs.append(np.concatenate([line(uv[0], uv[1]), line(uv[2], uv[3]), uv[4]]))
+    obs = np.asarray(obs, np.float32)
+    obs[0, 6:8] += 300.0
+    lil = LILPoseObs(state=torch.from_numpy(np.asarray(states, np.float32)),
+                     obs=torch.from_numpy(obs), valid=torch.from_numpy(np.r_[[True] * 7, False]))
+    return T0, po, lil
+
+
+def _phase_lm(fused_pose, dev, small_cfgs):
+    """Phase 3b: the LM step kernel against its plain version, whole pose
+    solves on the card against the CPU, and the launches of a tracked frame."""
+    import itertools
+
+    from pslam_tpu_torch.geometry import Camera
+    from pslam_tpu_torch.io.synthetic import arc_trajectory
+    from pslam_tpu_torch.pipeline.system import SlamSystem, TrackState
+    from pslam_tpu_torch.solver.pose_opt import pose_optimization
+
+    # (a) Random states: every mix of first evaluation, outcome, closing step
+    # and LIL terms, 11 states each. The state row is a selection of inputs
+    # and exact products (lambda x 0.5 or x 4, H + H_lil): it must be equal
+    # bit for bit, and with it every accept / reject decision. The proposal
+    # (a 6x6 solve and se3_exp) is held to K2's H bar, rtol 2e-4, with atol
+    # 1e-5; where the plain proposal is NaN the kernel's must be NaN too.
+    rng = np.random.default_rng(33)
+    combos = list(itertools.product((True, False), ("accept", "reject", "nan"),
+                                    (False, True), (False, True))) * 11
+    worst, n_accept = 0.0, 0
+    for k, (first, outcome, close, with_lil) in enumerate(combos):
+        inp = _lm_inputs(rng, first, outcome, close, with_lil)
+        s_got, r_got = _lm_run(fused_pose, inp, dev)
+        s_ref, r_ref = _lm_run(fused_pose, inp, "cpu")
+        label = f"LM state {k} (first {first}, {outcome}, close {close}, LIL {with_lil})"
+        np.testing.assert_array_equal(s_got, s_ref, err_msg=label)
+        np.testing.assert_array_equal(r_got[1], r_ref[1], err_msg=label)
+        p_got, p_ref = r_got[0, :16], r_ref[0, :16]
+        np.testing.assert_array_equal(np.isnan(p_got), np.isnan(p_ref), err_msg=label)
+        fin = ~np.isnan(p_ref)
+        np.testing.assert_allclose(p_got[fin], p_ref[fin], rtol=2e-4, atol=1e-5,
+                                   err_msg=label)
+        worst = max(worst, float(np.abs(p_got[fin] - p_ref[fin]).max(initial=0.0)))
+        n_accept += int(not first and outcome == "accept")
+    print(f"[3b LM] {len(combos)} random states: state rows bit-identical (every accept / "
+          f"reject decision equal, {n_accept} accepts), proposals within rtol 2e-4 / atol "
+          f"1e-5, max |diff| {worst:.3e}, NaN evaluations NaN on both")
+
+    # (b) Whole solves, card against CPU (the bars of
+    # tests/test_torch_fused_pose.py), and the launches of a solve.
+    cam = Camera(fx=517.3, fy=516.5, cx=318.6, cy=255.3, bf=40.0)
+    rng = np.random.default_rng(34)
+    for N, with_lil, origin in ((300, False, False), (1000, False, False),
+                                (4096, False, False), (80, True, False), (4096, True, False),
+                                (1024, False, True), (1024, True, True)):
+        T0, po, lil = _solve_problem(rng, N, with_lil, origin)
+        ref = pose_optimization(cam, T0, po, lil=lil)
+        k2, lm = fused_pose.LAUNCHES, fused_pose.LM_LAUNCHES
+        got = pose_optimization(cam, T0.to(dev), type(po)(*(t.to(dev) for t in po)),
+                                lil=None if lil is None else type(lil)(*(t.to(dev) for t in lil)))
+        k2, lm = fused_pose.LAUNCHES - k2, fused_pose.LM_LAUNCHES - lm
+        Tg, Tr = got[0].cpu().numpy(), ref[0].numpy()
+        D = Tr[:3, :3].astype(np.float64).T @ Tg[:3, :3]
+        rot = float(np.linalg.norm(0.5 * np.array([D[2, 1] - D[1, 2], D[0, 2] - D[2, 0],
+                                                    D[1, 0] - D[0, 1]])))
+        trans = float(np.abs(Tg[:3, 3] - Tr[:3, 3]).max())
+        same_in = np.array_equal(got[1].cpu().numpy(), ref[1].numpy())
+        same_lil = with_lil and np.array_equal(got[3].cpu().numpy(), ref[3].numpy())
+        print(f"[3b LM] solve N={N}{' + 8 LILs' if with_lil else ''}"
+              f"{' from the identity, empty slots at the origin' if origin else ''}: card vs cpu rotation "
+              f"{rot:.2e} rad, translation {trans:.2e} m, inliers equal {same_in} "
+              f"({int(got[1].sum())}){f', LIL inliers equal {same_lil}' if with_lil else ''}; "
+              f"launches K2 {k2}, LM {lm}")
+        if rot > 1e-4 or trans > 1e-4 or not same_in or (with_lil and not same_lil):
+            raise AssertionError(f"LM solve N={N} lil={with_lil}: card and CPU disagree")
+        if k2 != 49 or lm != 44:
+            raise AssertionError(f"a solve launched K2 {k2} and LM {lm} times, not 49 and 44")
+
+    # (c) A tracked frame: 98 K2 and 88 LM step launches a frame_step (two
+    # solves), and stats["pose_lm_steps"] counts the LM ones.
+    poses = arc_trajectory(24)[:8]
+    for name, cfg in small_cfgs:
+        from pslam_tpu_torch.io.synthetic import render_sequence
+
+        grays, depths, _ = render_sequence(cfg.camera, n_frames=8, poses=poses, seed=0)
+        slam = SlamSystem(cfg, device=dev)
+        rows = []
+        for i in range(len(grays)):
+            k2, lm = fused_pose.LAUNCHES, fused_pose.LM_LAUNCHES
+            st = dict(slam.stats)
+            slam.track_rgbd(grays[i], depths[i], i / 30.0)
+            if slam.state != TrackState.OK:
+                raise AssertionError(f"{name}: frame {i} ended {slam.state.name}")
+            if i == 0:
+                continue
+            d = {k: slam.stats.get(k, 0) - st.get(k, 0)
+                 for k in ("track_steps", "track_fallbacks", "pose_lm_steps")}
+            rows.append((fused_pose.LAUNCHES - k2, fused_pose.LM_LAUNCHES - lm, d))
+        print(f"[3b LM] {name}, 7 tracked frames: K2 / LM launches a frame "
+              f"{[r[:2] for r in rows]}, steps {[r[2]['track_steps'] for r in rows]}")
+        for k2, lm, d in rows:
+            if d["pose_lm_steps"] != lm or 44 * k2 != 49 * lm:
+                raise AssertionError(f"{name}: a frame launched K2 {k2}, LM {lm}, counted {d}")
+            if d["track_steps"] == 1 and not d["track_fallbacks"] and (k2, lm) != (98, 88):
+                raise AssertionError(f"{name}: a one-step frame launched K2 {k2}, LM {lm}")
+        if not any(r[2]["track_steps"] == 1 and r[:2] == (98, 88) for r in rows):
+            raise AssertionError(f"{name}: no frame of one step")
+
+    # Times of one step, and of one K2 + step iteration as the solve runs it.
+    inp = _lm_inputs(np.random.default_rng(35), False, "accept", False, False)
+    state, (H, b, cost), _, rows, _ = inp
+    state, rows, H, b, cost = (t.to(dev) for t in (state, rows, H, b, cost))
+    par = rows[0:1]
+    data, _ = _pose_inputs(fused_pose, dev, 4096, 5, cam, off_truth=True)
+    t = _timings(lambda: fused_pose.lm_step(state, H, b, cost, par, par),
+                 lambda: fused_pose.lm_step_plain(state, H, b, cost, par, par),
+                 (36 + 6 + 1 + 16 + 61 + 61 + 16) * 4, 400)
+
+    def iteration():
+        Hn, bn, cn, _ = fused_pose.pose_terms(data, par)
+        fused_pose.lm_step(state, Hn, bn, cn, par, par)
+
+    it_host = _host_us(iteration)
+    print(f"[3b LM] step: {_fmt_timings(t)}; one K2 + step iteration {it_host:.1f} us of host")
+    return dict(it_host_us=it_host, **t)
+
+
 def _run_slice(cfg, device, n_frames, poses=None, profile=None):
     """Track ``n_frames`` of the synthetic arc; every frame must end OK.
     ``profile=(a, b)`` runs torch.profiler over frames a..b-1 and returns
@@ -647,10 +906,9 @@ def _run_slice(cfg, device, n_frames, poses=None, profile=None):
 
 def _drive_main_path(name, cfg, n_frames, fused_match, fused_pose):
     """One main path on the card with the launch counters read around it."""
-    fused_match.LAUNCHES = 0
-    fused_pose.LAUNCHES = 0
+    _zero_counts(fused_match, fused_pose)
     run = _run_slice(cfg, "cuda", n_frames)
-    launches = {"fused_match": fused_match.LAUNCHES, "fused_pose": fused_pose.LAUNCHES}
+    launches = _counts(fused_match, fused_pose)
     slam, ms, is_kf, _, _, ate, _ = run
     tracked = n_frames - 1  # frame 0 initializes the map
     n_kf = int(slam.map.kf_valid.sum())
@@ -659,12 +917,13 @@ def _drive_main_path(name, cfg, n_frames, fused_match, fused_pose):
           f"{slam.stats['ba_runs']}, ATE {ate * 100:.3f} cm; median "
           f"{np.median(ms[5:]):.2f} ms/frame (frames 5+), keyframe frames mean "
           f"{ms[is_kf][1:].mean():.2f} ms, first frame {ms[0]:.1f} ms; "
-          f"launches {launches} ({launches['fused_match'] / tracked:.2f} and "
-          f"{launches['fused_pose'] / tracked:.2f} per tracked frame)")
+          f"launches {launches} {_per_frame(launches, tracked)}, stats['pose_lm_steps'] "
+          f"{slam.stats.get('pose_lm_steps', 0)}")
     if n_kf < 3 or slam.stats["ba_runs"] < 1 or not ate < 0.05:
         raise AssertionError(f"{name}: too few keyframes or local BAs, or ATE >= 5 cm")
-    if launches["fused_match"] < 2 * tracked or launches["fused_pose"] < 98 * tracked:
-        raise AssertionError(f"{name} did not run through both kernels: {launches}")
+    _check_launches(name, "cuda", launches, tracked)
+    if slam.stats.get("pose_lm_steps", 0) != launches["lm_step"]:
+        raise AssertionError(f"{name}: stats['pose_lm_steps'] does not count every LM step")
     return slam, launches, tracked, float(np.median(ms[5:]))
 
 
@@ -715,13 +974,12 @@ def _phase_reloc(device, fused_match, fused_pose, cam=None):
     if slam.state != TrackState.OK or slam.map.n_kf < 3:
         raise AssertionError("8 reloc: the map before the kidnap is not tracked")
     slam.state = TrackState.LOST
-    fused_match.LAUNCHES = 0
-    fused_pose.LAUNCHES = 0
+    _zero_counts(fused_match, fused_pose)
     t0 = time.perf_counter()
     T = slam.track_rgbd(grays[3], depths[3], 11 / 30.0)
     _sync(device)
     ms = (time.perf_counter() - t0) * 1e3
-    launches = {"fused_match": fused_match.LAUNCHES, "fused_pose": fused_pose.LAUNCHES}
+    launches = _counts(fused_match, fused_pose)
     state = slam.state
     err = float(np.linalg.norm(_centre(T) - _centre(poses_gt[3])))
     slam.track_rgbd(grays[4], depths[4], 12 / 30.0)
@@ -733,9 +991,9 @@ def _phase_reloc(device, fused_match, fused_pose, cam=None):
         raise AssertionError("8 reloc: no relocalization, or its centre is >= 5 cm off")
     if slam.state != TrackState.OK:
         raise AssertionError("8 reloc: the frame after the relocalization is not OK")
-    if device != "cpu" and (launches["fused_match"] < 1 or launches["fused_pose"] < 1):
-        raise AssertionError(f"8 reloc: the relocalization did not launch both kernels: "
-                             f"{launches}")
+    if device != "cpu" and min(launches.values()) < 1:
+        raise AssertionError(f"8 reloc: the relocalization did not launch all three "
+                             f"kernels: {launches}")
     return launches
 
 
@@ -880,8 +1138,7 @@ def _phase_config4(device, fused_match, fused_pose, n_frames=160, cfg=None):
     try:
         if device != "cpu":
             torch.cuda.reset_peak_memory_stats()
-        fused_match.LAUNCHES = 0
-        fused_pose.LAUNCHES = 0
+        _zero_counts(fused_match, fused_pose)
         ms, is_kf, est = [], [], []
         for i in range(n_frames):
             n_kf = slam.stats["kf_inserted"]
@@ -892,7 +1149,7 @@ def _phase_config4(device, fused_match, fused_pose, n_frames=160, cfg=None):
             is_kf.append(slam.stats["kf_inserted"] > n_kf)
             if slam.state != TrackState.OK:
                 raise AssertionError(f"10 config 4: frame {i} ended {slam.state.name}")
-        launches = {"fused_match": fused_match.LAUNCHES, "fused_pose": fused_pose.LAUNCHES}
+        launches = _counts(fused_match, fused_pose)
         corrected = slam.poses  # flushes; rows chained to the corrected keyframes
         peak = torch.cuda.max_memory_allocated() if device != "cpu" else None
         if slam.loop_closer is not closer:
@@ -918,8 +1175,7 @@ def _phase_config4(device, fused_match, fused_pose, n_frames=160, cfg=None):
               f"{int(slam.map.kf_valid.sum())} (inserted {slam.stats['kf_inserted']}); loop "
               f"stats {lc}; ATE online {online * 100:.3f} cm, corrected {ate * 100:.3f} cm; "
               f"peak device memory {peak_txt}; launches {launches} "
-              f"({launches['fused_match'] / tracked:.2f} and "
-              f"{launches['fused_pose'] / tracked:.2f} per tracked frame)")
+              f"{_per_frame(launches, tracked)}")
         n_fuse_only = lc.get("fuse_only", 0) // 2  # counted twice a call, as in pslam_tpu
         if lc["detected"] < 1 or lc["closed"] + lc.get("fuse_only", 0) < 1:
             raise AssertionError("10 config 4: no loop handled")
@@ -927,9 +1183,7 @@ def _phase_config4(device, fused_match, fused_pose, n_frames=160, cfg=None):
             raise AssertionError("10 config 4: a loop correction without its global BA")
         if not ate < 0.05:
             raise AssertionError(f"10 config 4: corrected ATE {ate * 100:.3f} cm >= 5 cm")
-        if device != "cpu" and (launches["fused_match"] < 2 * tracked
-                                or launches["fused_pose"] < 98 * tracked):
-            raise AssertionError(f"10 config 4 did not run through both kernels: {launches}")
+        _check_launches("10 config 4", device, launches, tracked)
         return launches, tracked
     finally:
         loop_closing.run_global_ba = run_global_ba
@@ -967,23 +1221,33 @@ def _centre(T):
 def _zero_counts(fused_match, fused_pose):
     fused_match.LAUNCHES = 0
     fused_pose.LAUNCHES = 0
+    fused_pose.LM_LAUNCHES = 0
 
 
 def _counts(fused_match, fused_pose):
-    return {"fused_match": fused_match.LAUNCHES, "fused_pose": fused_pose.LAUNCHES}
+    """Launches since ``_zero_counts``: K1, K2 and the LM step."""
+    return {"fused_match": fused_match.LAUNCHES, "fused_pose": fused_pose.LAUNCHES,
+            "lm_step": fused_pose.LM_LAUNCHES}
+
+
+def _short(launches, tracked):
+    """Fewer launches than every tracked frame needs: 2 K1, 98 K2 and 88 LM
+    steps (two pose solves of 49 K2 calls and 44 steps)."""
+    return (launches["fused_match"] < 2 * tracked or launches["fused_pose"] < 98 * tracked
+            or launches["lm_step"] < 88 * tracked)
 
 
 def _check_launches(label, device, launches, tracked):
-    """Every tracked frame went through both kernels (on the card)."""
-    if device != "cpu" and (launches["fused_match"] < 2 * tracked
-                            or launches["fused_pose"] < 98 * tracked):
-        raise AssertionError(f"{label} did not run through both kernels: {launches} for "
-                             f"{tracked} tracked frames")
+    """Every tracked frame went through all three kernels (on the card)."""
+    if device != "cpu" and _short(launches, tracked):
+        raise AssertionError(f"{label} did not run through all three kernels: {launches} "
+                             f"for {tracked} tracked frames")
 
 
 def _per_frame(launches, tracked):
-    return (f"({launches['fused_match'] / tracked:.2f} and "
-            f"{launches['fused_pose'] / tracked:.2f} per tracked frame)")
+    return (f"({launches['fused_match'] / tracked:.2f}, "
+            f"{launches['fused_pose'] / tracked:.2f} and "
+            f"{launches['lm_step'] / tracked:.2f} per tracked frame)")
 
 
 def _phase_stereo(device, fused_match, fused_pose, n_frames=60):
@@ -1170,8 +1434,10 @@ def _phase_vo(device, fused_match, fused_pose):
     if n_vo < 3 or slam.state != TrackState.OK or slam._vo_mode or n_lost > 4:
         raise AssertionError("13 vo: the excursion was not survived on visual odometry")
     if device != "cpu" and (launches["fused_match"] < 2 * n_tracked + n_vo
-                            or launches["fused_pose"] < 98 * n_tracked):
-        raise AssertionError(f"13 vo: the excursion did not run through both kernels: {launches}")
+                            or launches["fused_pose"] < 98 * n_tracked
+                            or launches["lm_step"] < 88 * n_tracked):
+        raise AssertionError(f"13 vo: the excursion did not run through all three kernels: "
+                             f"{launches}")
 
     cfg4 = SlamConfig()
     grays, depths, _ = render_sequence(cfg4.camera, n_frames=70, seed=2)
@@ -1270,6 +1536,10 @@ def _phase_pipelined(device, fused_match, fused_pose, cfg, n_frames=60):
     if not drained:
         raise AssertionError("14 pipelined: the mixed-mode drain failed")
     _check_launches("14 pipelined", device, pipe["launches"], tracked)
+    for mode, run in out.items():
+        if run["slam"].stats.get("pose_lm_steps", 0) != run["launches"]["lm_step"]:
+            raise AssertionError(f"14 {mode}: stats['pose_lm_steps'] does not count every "
+                                 f"LM step")
     return pipe["launches"], tracked, slam
 
 
@@ -1312,8 +1582,9 @@ def _phase_checkpoint(device, fused_match, fused_pose, slam14, slam13, frames13)
         raise AssertionError(f"15 checkpoint: a loaded system differs: {differ}")
     if states != ["OK"] * 5:
         raise AssertionError("15 checkpoint: the resumed system did not track on")
-    if device != "cpu" and (launches["fused_match"] < 1 or launches["fused_pose"] < 98):
-        raise AssertionError(f"15 checkpoint: the resumed frames did not launch both kernels")
+    if device != "cpu" and _short(launches, 1):
+        raise AssertionError(f"15 checkpoint: the resumed frames did not launch all three "
+                             f"kernels")
     if resumed.state != TrackState.OK:
         raise AssertionError("15 checkpoint: the resumed system is not OK")
     return launches
@@ -1905,16 +2176,17 @@ def _configs():
             SlamConfig(use_bow=False, use_loop_closing=False), small)
 
 
-def _kernel_entries(k1, k2, launches, per_frame):
-    entries = []
-    for name, replaces, k in (("fused_match", "pslam_tpu/ops/pallas_match.py:40", k1),
-                              ("fused_pose", "pslam_tpu/ops/pallas_pose.py:36", k2)):
-        entries.append(dict(
-            name=name, route="cuda", source=f"pslam_tpu_torch/csrc/{name}.cu",
-            replaces=replaces, launches=launches.get(name),
-            launches_per_tracked_frame=per_frame.get(name),
-            library_ms=None, **k))
-    return entries
+def _kernel_entries(k1, k2, lm, launches, per_frame):
+    """The ``kernels`` line: K1, K2 and (when phase 3b ran, ``lm`` not None)
+    the LM step, which replaces no TPU kernel."""
+    rows = [("fused_match", "fused_match", "pslam_tpu/ops/pallas_match.py:40", k1),
+            ("fused_pose", "fused_pose", "pslam_tpu/ops/pallas_pose.py:36", k2)]
+    if lm is not None:
+        rows.append(("lm_step", "fused_pose", None, lm))
+    return [dict(name=name, route="cuda", source=f"pslam_tpu_torch/csrc/{src}.cu",
+                 replaces=replaces, launches=launches.get(name),
+                 launches_per_tracked_frame=per_frame.get(name), library_ms=None, **k)
+            for name, src, replaces, k in rows]
 
 
 def measure(root):
@@ -1941,7 +2213,7 @@ def measure(root):
               f"(frames 5+ outside {window[0]}-{window[1] - 1}); device {dev_ms:.3f} ms and "
               f"{n_dev:.0f} activities a frame over frames {window[0]}-{window[1] - 1}; "
               f"ATE {ate * 100:.3f} cm")
-    print(json.dumps({"measure": {"root": str(root), "kernels": _kernel_entries(k1, k2, {}, {}),
+    print(json.dumps({"measure": {"root": str(root), "kernels": _kernel_entries(k1, k2, None, {}, {}),
                                   "slices": slices}}))
 
 
@@ -1950,12 +2222,16 @@ def main():
     dev = torch.device("cuda", 0)
     import pslam_tpu_torch  # noqa: F401  (turns TF32 off)
     from pslam_tpu_torch.ops import _build, fused_match, fused_pose
+    from pslam_tpu_torch.ops.lines import LineConfig
 
     _phase_build(_build, check_spill=True)
     k1 = _phase_k1(fused_match, dev)
     k2 = _phase_k2(fused_pose, dev)
-
     cfg, cfg3, small = _configs()
+    small3 = dataclasses.replace(small, use_lines=True, use_lils=True,
+                                 lines=LineConfig(tile=8))
+    lm = _phase_lm(fused_pose, dev, (("config 1 320x240", small), ("config 3 320x240", small3)))
+
     slam4, launches, tracked, ms4 = _drive_main_path("4 slice", cfg, 60, fused_match,
                                                      fused_pose)
 
@@ -1986,10 +2262,7 @@ def main():
         raise AssertionError("structural-line slice: no map lines, no re-observed LIL "
                              "or no local BA with LIL edges")
 
-    from pslam_tpu_torch.ops.lines import LineConfig
-
-    _phase_repeat(dataclasses.replace(small, use_lines=True, use_lils=True,
-                                      lines=LineConfig(tile=8)))
+    _phase_repeat(small3)
     launches8 = _phase_reloc("cuda", fused_match, fused_pose)
     _phase_loop()
     launches10, tracked10 = _phase_config4("cuda", fused_match, fused_pose)
@@ -2013,7 +2286,7 @@ def main():
     on_frames = {k: sum(l[k] for l, _ in tracked_paths) for k in launches}
     n_tracked = sum(n for _, n in tracked_paths)
     print(json.dumps({"kernels": _kernel_entries(
-        k1, k2, {k: on_frames[k] + launches8[k] + launches15[k] + launches19[k]
+        k1, k2, lm, {k: on_frames[k] + launches8[k] + launches15[k] + launches19[k]
                  for k in launches},
         {k: v / n_tracked for k, v in on_frames.items()})}))
     print(json.dumps({"ok": True, "device": {

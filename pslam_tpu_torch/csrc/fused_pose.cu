@@ -168,6 +168,198 @@ __global__ void __launch_bounds__(kThreads) pose_terms(
   cluster.sync();  // keep every block's shared row alive until block 0 has read it
 }
 
+// ---------------------------------------------------------------------------
+// The LM step: all the work of one Levenberg-Marquardt iteration of the pose
+// solve (solver/pose_opt.py) that falls between two K2 calls, in one launch.
+// It takes in the evaluation K2 just wrote (plus the LIL terms when the solve
+// has them), accepts or rejects it, updates lambda, and then either proposes
+// the next pose into the parameter row the next K2 call reads, or (the last
+// step of a round) writes the round's pose into that row and the classify
+// call's row and resets lambda and the first-evaluation flag for the next
+// round. The
+// formulas are those of ops/fused_pose.py lm_step_plain and geometry/lie.py,
+// in f32.
+//
+// What bounds it: nothing but latency. It reads ~100 floats and solves one
+// 6x6 system; one warp runs it, every lane computing the same values from
+// the same loads (no shuffles, no shared memory), and lane 0 stores.
+//
+// state (128 floats, 61 used): [T row-major (16), lambda, cost, H (36), b (6),
+// first]. first != 0 marks the round's first evaluation, which is taken
+// whatever its cost (so a NaN first cost is kept, as the plain loop keeps it).
+
+constexpr int kLmT = 0, kLmLam = 16, kLmCost = 17, kLmH = 18, kLmB = 54, kLmFirst = 60;
+
+// (1 - cos x) / x^2, sin x / x and (x - sin x) / x^3, with the series below
+// 1e-2 (geometry/lie.py _cosc, _sinc, _sincc).
+__device__ __forceinline__ float lm_sinc(float x) {
+  const float x2 = x * x;
+  return x < 1e-2f ? 1.0f - x2 / 6.0f + x2 * x2 / 120.0f : sinf(x) / x;
+}
+__device__ __forceinline__ float lm_cosc(float x) {
+  const float x2 = x * x;
+  return x < 1e-2f ? 0.5f - x2 / 24.0f + x2 * x2 / 720.0f : (1.0f - cosf(x)) / (x * x);
+}
+__device__ __forceinline__ float lm_sincc(float x) {
+  const float x2 = x * x;
+  return x < 1e-2f ? 1.0f / 6.0f - x2 / 120.0f + x2 * x2 / 5040.0f
+                   : (x - sinf(x)) / (x * x * x);
+}
+
+// x = (H + lam diag(H) + 1e-8 I)^-1 b by LU with partial pivoting (the
+// first row of largest magnitude, as LAPACK's getrf picks it). A zero pivot
+// gives inf or NaN, never a fault, as torch.linalg.solve_ex without its info.
+__device__ __forceinline__ void lm_solve(const float (&H)[36], const float (&b)[6], float lam,
+                                         float (&x)[6]) {
+  float A[6][6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+#pragma unroll
+    for (int j = 0; j < 6; ++j) A[i][j] = H[i * 6 + j];
+    // H + lam * diag(diag(H)) + 1e-8 * I, rounded op by op as the plain step.
+    A[i][i] = __fadd_rn(__fadd_rn(H[i * 6 + i], __fmul_rn(lam, H[i * 6 + i])), 1e-8f);
+    x[i] = b[i];
+  }
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    int p = k;
+    float best = fabsf(A[k][k]);
+#pragma unroll
+    for (int i = k + 1; i < 6; ++i) {
+      if (fabsf(A[i][k]) > best) {
+        best = fabsf(A[i][k]);
+        p = i;
+      }
+    }
+#pragma unroll
+    for (int i = k + 1; i < 6; ++i) {
+      if (i == p) {
+#pragma unroll
+        for (int j = 0; j < 6; ++j) {
+          const float s = A[k][j];
+          A[k][j] = A[i][j];
+          A[i][j] = s;
+        }
+        const float s = x[k];
+        x[k] = x[i];
+        x[i] = s;
+      }
+    }
+#pragma unroll
+    for (int i = k + 1; i < 6; ++i) {
+      const float l = A[i][k] / A[k][k];
+#pragma unroll
+      for (int j = k + 1; j < 6; ++j) A[i][j] -= l * A[k][j];
+      x[i] -= l * x[k];
+    }
+  }
+#pragma unroll
+  for (int i = 5; i >= 0; --i) {
+    float s = x[i];
+#pragma unroll
+    for (int j = i + 1; j < 6; ++j) s -= A[i][j] * x[j];
+    x[i] = s / A[i][i];
+  }
+}
+
+// out = se3_exp(xi) @ T (geometry/lie.py se3_exp: Rodrigues R, the left
+// Jacobian V, t = V u; xi = [omega, upsilon]).
+__device__ __forceinline__ void lm_exp_times(const float (&xi)[6], const float (&T)[16],
+                                             float (&out)[16]) {
+  const float w0 = xi[0], w1 = xi[1], w2 = xi[2];
+  const float theta = sqrtf(w0 * w0 + w1 * w1 + w2 * w2 + 1e-24f);
+  const float K[3][3] = {{0.f, -w2, w1}, {w2, 0.f, -w0}, {-w1, w0, 0.f}};
+  float K2[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) K2[i][j] = K[i][0] * K[0][j] + K[i][1] * K[1][j] + K[i][2] * K[2][j];
+  }
+  const float a = lm_sinc(theta), bc = lm_cosc(theta), c = lm_sincc(theta);
+  float E[4][4];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    float t = 0.f;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float id = i == j ? 1.f : 0.f;
+      E[i][j] = id + a * K[i][j] + bc * K2[i][j];
+      t += (id + bc * K[i][j] + c * K2[i][j]) * xi[3 + j];
+    }
+    E[i][3] = t;
+  }
+  E[3][0] = 0.f;
+  E[3][1] = 0.f;
+  E[3][2] = 0.f;
+  E[3][3] = 1.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      out[i * 4 + j] = E[i][0] * T[j] + E[i][1] * T[4 + j] + E[i][2] * T[8 + j] +
+                       E[i][3] * T[12 + j];
+    }
+  }
+}
+
+// H_lil, b_lil, cost_lil: null, or the LIL terms at the same pose. par_in:
+// the row K2 just evaluated (its first 16 floats are the pose). par_out: the
+// next proposal's row, or with close the classify row; with close par_in
+// receives the round's pose too, where the next round starts.
+__global__ void __launch_bounds__(32) lm_step(
+    const float* __restrict__ H_new, const float* __restrict__ b_new,
+    const float* __restrict__ cost_new, const float* __restrict__ H_lil,
+    const float* __restrict__ b_lil, const float* __restrict__ cost_lil, float* par_in,
+    float* state, float* par_out, int close) {
+  const bool first = state[kLmFirst] != 0.f;
+  float cost_e = cost_new[0];
+  if (cost_lil != nullptr) cost_e = cost_e + cost_lil[0];
+  const float cost_old = state[kLmCost];
+  // A NaN cost_e compares false: rejected, unless it is the first.
+  const bool accept = first || cost_e < cost_old;
+  const bool move = !first && accept;
+
+  float T[16], H[36], b[6];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) T[i] = move ? par_in[i] : state[kLmT + i];
+#pragma unroll
+  for (int i = 0; i < 36; ++i) {
+    float h = H_new[i];
+    if (H_lil != nullptr) h = h + H_lil[i];
+    H[i] = accept ? h : state[kLmH + i];
+  }
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    float v = b_new[i];
+    if (b_lil != nullptr) v = v + b_lil[i];
+    b[i] = accept ? v : state[kLmB + i];
+  }
+  float lam = state[kLmLam];
+  if (!first) lam = fminf(fmaxf(accept ? lam * 0.5f : lam * 4.0f, 1e-10f), 1e6f);
+  const float cost = accept ? cost_e : cost_old;
+  __syncwarp();  // every lane has read state and par_in before lane 0 writes them
+
+  float P[16];
+  if (!close) {
+    float dx[6];
+    lm_solve(H, b, lam, dx);
+    lm_exp_times(dx, T, P);
+  }
+  if (threadIdx.x != 0) return;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    state[kLmT + i] = T[i];
+    par_out[i] = close ? T[i] : P[i];
+    if (close) par_in[i] = T[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 36; ++i) state[kLmH + i] = H[i];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) state[kLmB + i] = b[i];
+  state[kLmCost] = cost;
+  state[kLmLam] = close ? 1e-4f : lam;
+  state[kLmFirst] = close ? 1.f : 0.f;
+}
 }  // namespace
 
 // data (8, E) f32, par (128,) f32 -> H (6, 6), b (6,), cost (1,), chi2 (E,) f32.
@@ -191,5 +383,22 @@ extern "C" int pslam_fused_pose(const void* data, const void* par, int E, void* 
       static_cast<float*>(H), static_cast<float*>(b), static_cast<float*>(cost),
       static_cast<float*>(chi2));
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One LM step of the pose solve (see lm_step above): H_new (6, 6), b_new (6,),
+// cost_new (1,) from K2; H_lil, b_lil, cost_lil the LIL terms or all null;
+// par_in, par_out (1, 128) rows; state (128,) f32 updated in place. One
+// warp. Returns the launch's error code.
+extern "C" int pslam_lm_step(const void* H_new, const void* b_new, const void* cost_new,
+                             const void* H_lil, const void* b_lil, const void* cost_lil,
+                             void* par_in, void* state, void* par_out, int close,
+                             void* stream) {
+  lm_step<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(H_new), static_cast<const float*>(b_new),
+      static_cast<const float*>(cost_new), static_cast<const float*>(H_lil),
+      static_cast<const float*>(b_lil), static_cast<const float*>(cost_lil),
+      static_cast<float*>(par_in), static_cast<float*>(state), static_cast<float*>(par_out),
+      close);
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,6 +36,7 @@ import torch
 
 from pslam_tpu_torch.geometry.lie import rotation_to_quaternion
 from pslam_tpu_torch.models.map_state import MapState
+from pslam_tpu_torch.ops import fused_pose
 from pslam_tpu_torch.ops.bow import Vocabulary, default_vocabulary
 from pslam_tpu_torch.ops.fans import LILFeatures
 from pslam_tpu_torch.ops.match import TH_LOW, hamming_matrix, mutual_nn_match, window_mask
@@ -385,10 +386,13 @@ class SlamSystem:
             T_in, v_in, acc_in = prev["out"].T_cw, prev["out"].vel, prev["out"].acc
         self._count("track_frames", 1)
         self._count("track_steps", 1)
+        lm_steps = fused_pose.LM_LAUNCHES
         out = fstep.frame_step(
             self.cfg, gray_d, depth_d, T_in, v_in,
             self.cfg.tracking.motion_match_radius, self._snap, acc_in,
         )
+        # LM step kernels launched by this frame's pose solves (0 on the CPU).
+        self._count("pose_lm_steps", fused_pose.LM_LAUNCHES - lm_steps)
         self._inflight = {
             "out": out,
             "summary": self._start_read(out.summary),
@@ -426,10 +430,13 @@ class SlamSystem:
         return _np(buf)
 
     def _finish_pipelined(self, item) -> np.ndarray:
+        lm_steps = fused_pose.LM_LAUNCHES
         hf = self._finish_frame(
             item["out"], item["gray_d"], item["depth_d"], item["ts"], item["fid"],
             item["epoch"], item["snap_ids"], summary=self._end_read(item["summary"]),
         )
+        # The LM steps of the retries and fallback (0 on the CPU).
+        self._count("pose_lm_steps", fused_pose.LM_LAUNCHES - lm_steps)
         self._commit_frame(hf)
         return hf.T_cw
 
@@ -506,16 +513,20 @@ class SlamSystem:
         snapshot + one 24-float read-back."""
         with span("track"):
             self._count("track_frames", 1)
+            lm_steps = fused_pose.LM_LAUNCHES
             if self._snap is None:
                 self._rebuild_snapshot()
             with span("track.step", attempt="motion"):
                 out = self._frame_step(
                     gray_d, depth_d, self.velocity, self.cfg.tracking.motion_match_radius
                 )
-            return self._finish_frame(
+            hf = self._finish_frame(
                 out, gray_d, depth_d, timestamp, self.frame_id, self._snap_epoch,
                 self._snap_id_pack(),
             )
+            # LM step kernels launched by this frame's pose solves (0 on the CPU).
+            self._count("pose_lm_steps", fused_pose.LM_LAUNCHES - lm_steps)
+            return hf
 
     def _finish_frame(self, out, gray_d, depth_d, timestamp: float, frame_id: int,
                       epoch: int, snap_ids, summary=None) -> HostFrame:

@@ -10,14 +10,18 @@ chi2 drops back under the gate.
 The loop follows the JAX package's fused path (``_pose_optimization_fused``):
 each iteration evaluates ``ops.fused_pose.pose_terms`` once at the proposal
 (kernel K2 on CUDA tensors), so a solve is 4 x (1 + 10) + 4 + 1 = 49 calls.
-Accept/reject stays on the device (``torch.where``) and the 6x6 step uses
-``torch.linalg.solve_ex``, so the loop never waits for the host.
+Everything else of an iteration is one ``ops.fused_pose.lm_step`` (the LM
+step kernel on CUDA tensors): accept/reject, lambda, the damped 6x6 solve
+and the next proposal, written straight into the parameter row K2 reads
+next. The state (pose, lambda, cost, H, b) stays on the device, so the loop
+never waits for the host: a round is K2, step, K2, step, ... 11 of each.
 
 Structural-line (LIL) edges (solver/lil.py) join the same normal equations
 through the optional ``lil`` argument, as in the JAX package's fused path
 (Optimizer.cc:619-694: LIL vertices fixed, info I*0.01, Huber sqrt(11.07),
-per-round chi2 gate 11.07). Their terms are plain torch beside each K2 call;
-K2 itself and its 49 calls per solve do not change.
+per-round chi2 gate 11.07). Their terms are plain torch beside each K2 call
+and join K2's inside the LM step; K2 itself and its 49 calls per solve do
+not change.
 """
 
 from __future__ import annotations
@@ -26,13 +30,8 @@ from typing import NamedTuple
 
 import torch
 
-from pslam_tpu_torch.geometry import Camera, se3_exp
-from pslam_tpu_torch.ops.fused_pose import (
-    pack_pose_data,
-    pack_pose_params,
-    pose_param_tail,
-    pose_terms,
-)
+from pslam_tpu_torch.geometry import Camera
+from pslam_tpu_torch.ops.fused_pose import lm_rows, lm_step, pack_pose_data, pose_terms
 from pslam_tpu_torch.solver.lil import (
     CHI2_LIL,
     LILPoseObs,
@@ -93,13 +92,6 @@ def _lil_terms(cam: Camera, T, lil: LILPoseObs, use_huber: bool, active):
     return H, b, cost, chi2
 
 
-def _lm_step(H, b, lam):
-    """Damped 6x6 solve (no host sync: solve_ex does not check ``info``)."""
-    eye = torch.eye(6, dtype=H.dtype, device=H.device)
-    Hd = H + lam * torch.diag(torch.diag(H)) + 1e-8 * eye
-    return torch.linalg.solve_ex(Hd, b[:, None])[0][:, 0]
-
-
 def pose_optimization(
     cam: Camera,
     T_init,
@@ -115,59 +107,47 @@ def pose_optimization(
     None)."""
     N = po.valid.shape[0]
     E = -(-N // 128) * 128
-    dev = T_init.device
-    data0 = pack_pose_data(po)
+    data0 = pack_pose_data(po)  # row 7 = po.valid: the classify block
     if E != N:
         data0 = torch.nn.functional.pad(data0, (0, E - N))
-    tails = {h: pose_param_tail(cam, h, dev) for h in (False, True)}
-    is_stereo = po.obs[..., 2] >= 0.0
-    gate = torch.where(
-        is_stereo,
-        torch.tensor(CHI2_STEREO, device=dev),
-        torch.tensor(CHI2_MONO, device=dev),
-    )
+    # The LM block, row 7 the round's active edges. Its unmatched and padding
+    # slots are parked 1 m down T_init's optical axis: a slot at the camera
+    # centre (an empty map slot at the origin, seen from the identity pose a
+    # new map starts at) overflows K2's Jacobian products to inf, and its zero
+    # weight turns them into NaN in H.
+    R, t = T_init[:3, :3], T_init[:3, 3]
+    park = R[2] - t @ R  # R^T (e_z - t)
+    data = data0.clone()
+    data[0:3] = torch.where(data0[7] > 0.5, data0[0:3], park[:, None])
+    rows = lm_rows(cam, T_init)
+    state, par_huber, par_plain = rows[0], rows[1:2], rows[2:3]
+    gate = torch.where(po.obs[..., 2] >= 0.0, CHI2_STEREO, CHI2_MONO)
 
-    def lm_round(T, active, lil_active, use_huber: bool):
-        data = data0.clone()
-        data[7, :N] = (active & po.valid).to(torch.float32)
-        tail = tails[use_huber]
-
-        def all_terms(T):
-            H, b, cost, _ = pose_terms(data, pack_pose_params(T, tail))
-            if lil is not None:
-                Hx, bx, cost_x, _ = _lil_terms(cam, T, lil, use_huber, lil_active)
-                H, b, cost = H + Hx, b + bx, cost + cost_x
-            return H, b, cost
-
-        H, b, cost = all_terms(T)
-        lam = torch.tensor(1e-4, dtype=T.dtype, device=dev)
-        for _ in range(iters_per_round):
-            dx = _lm_step(H, b, lam)
-            T_new = se3_exp(dx) @ T
-            H_new, b_new, cost_new = all_terms(T_new)
-            accept = cost_new < cost
-            T = torch.where(accept, T_new, T)
-            lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-10, 1e6)
-            cost = torch.where(accept, cost_new, cost)
-            H = torch.where(accept, H_new, H)
-            b = torch.where(accept, b_new, b)
-        return T
-
-    def classify(T):
-        data = data0.clone()
-        data[7, :N] = po.valid.to(torch.float32)
-        *_, chi2 = pose_terms(data, pack_pose_params(T, tails[False]))
+    def classify():
+        *_, chi2 = pose_terms(data0, par_plain)
         return chi2[:N]
 
     active = po.valid
     lil_active = None if lil is None else lil.valid
-    T = T_init
     for rnd in range(rounds):
-        T = lm_round(T, active, lil_active, rnd < 2)
-        chi2 = classify(T)
+        use_huber = rnd < 2
+        par = par_huber if use_huber else par_plain
+        data[7, :N] = active & po.valid
+        for it in range(iters_per_round + 1):
+            H, b, cost, _ = pose_terms(data, par)
+            terms = None
+            if lil is not None:
+                Hx, bx, cost_x, _ = _lil_terms(cam, par[0, :16].view(4, 4), lil, use_huber,
+                                               lil_active)
+                terms = (Hx, bx, cost_x)
+            if it < iters_per_round:
+                lm_step(state, H, b, cost, par, par, lil=terms)
+            else:
+                lm_step(state, H, b, cost, par, par_plain, lil=terms, close=True)
+        chi2 = classify()
         active = po.valid & (chi2 <= gate)
         if lil is not None:
-            *_, lchi2 = _lil_terms(cam, T, lil, False, lil.valid)
+            *_, lchi2 = _lil_terms(cam, par_plain[0, :16].view(4, 4), lil, False, lil.valid)
             lil_active = lil.valid & (lchi2 <= CHI2_LIL)
-    chi2 = classify(T)
-    return T, active, chi2, lil_active
+    chi2 = classify()
+    return state[:16].view(4, 4), active, chi2, lil_active

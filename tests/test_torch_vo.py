@@ -172,8 +172,10 @@ def test_localization_only_runs_identical(runs):
     worst = max(r[4] for r in rows)
     print(f"localization-only run: max centre difference {worst * 1e3:.3f} mm; stats {ts.stats}")
     assert worst <= 0.01, [round(r[4], 5) for r in rows]
-    # The port also counts its tracked frames and frame_step runs; JAX does not.
-    track = {"track_frames", "track_steps", "track_retries", "track_fallbacks"}
+    # The port also counts its tracked frames, frame_step runs and LM step
+    # kernels; JAX does not.
+    track = {"track_frames", "track_steps", "track_retries", "track_fallbacks",
+             "pose_lm_steps"}
     assert ts.stats.keys() - js.stats.keys() <= track
     assert {k: v for k, v in ts.stats.items() if k not in track} == js.stats
 
