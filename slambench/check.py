@@ -13,7 +13,9 @@ the plain reference (``reference.py``) and the true scene:
 - tracking: every pose ``track_rgbd`` returned after the warm-up: frames
   lost (``lost_frames``); and over the first ``head_frames`` of the window
   (a fixed count: drift and the rounding of chained poses grow with the
-  frames tracked, and a faster program tracks more) their ATE as a share of
+  frames tracked, and a faster program tracks more), cut before the first
+  frame that accepted a loop (a loop correction rightly moves the poses
+  after it), their ATE as a share of
   the ATE that a pose held still would read, the spread of their true
   positions (``ate_head_ratio``: a stale pose reads 1 under any motion), and
   how far each rotation is from a rotation (``pose_orth``);
@@ -24,15 +26,21 @@ the plain reference (``reference.py``) and the true scene:
   that grows with the frames a window tracks), and the median distance from
   the room's faces of each map point they observe, carried into the
   keyframe's camera by the program's pose of it and out again by its true
-  pose (``map_surface_mm``).
+  pose (``map_surface_mm``);
+- loop closing, where the configuration judges it: whether the loop closer
+  accepted no loop from the first window frame to the end of the run
+  (``loop_missed``, 1 or 0), and for each loop edge (keyframe, loop
+  keyframe) it added then, how far the two keyframes' relative pose in the
+  final map is from their true relative pose (``loop_rel_cm``, the largest).
 
-The limits come from the configuration file's ``limits``. ``lost_frames``
-is exact. ``kf_rel_cm`` and ``map_surface_mm`` hold the configuration's
-stated accuracy. ``ate_head_ratio`` was set between the program's readings
-and those of a stale pose; the three precision limits (``pose_orth``,
-``depth_rel_p99``, ``desc_bits_mean``) between the program's and the
-control's (the reference computed in TF32 in the program's place), as
-``PERF.md`` records.
+The limits come from the configuration file's ``limits``, and ``judge``
+judges the numbers that it lists. ``lost_frames`` and ``loop_missed`` are
+exact. ``kf_rel_cm``, ``map_surface_mm`` and ``loop_rel_cm`` hold the
+configuration's stated accuracy. ``ate_head_ratio`` was set between the
+program's readings and those of a stale pose; the three precision limits
+(``pose_orth``, ``depth_rel_p99``, ``desc_bits_mean``) between the
+program's and the control's (the reference computed in TF32 in the
+program's place), as ``PERF.md`` records.
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ from slambench.traffic import path_poses
 
 KF_SAMPLE = 8
 CHECKS = ("lost_frames", "ate_head_ratio", "pose_orth", "depth_rel_p99", "desc_bits_mean",
-          "kf_rel_cm", "map_surface_mm")
+          "kf_rel_cm", "map_surface_mm", "loop_missed", "loop_rel_cm")
 
 
 def ate_ratio(est_poses, gt_poses) -> float:
@@ -108,17 +116,41 @@ def depth_gaps(m, slots, pixels, seq_of_frame, gt, room, cam, dmf, depth_of=None
     return np.concatenate(gaps) if gaps else np.zeros(0)
 
 
+def loop_readings(m, seq_of_frame, gt, loops) -> dict:
+    """``loop_missed`` and ``loop_rel_cm`` of ``loops``: {"closed": loops
+    accepted from the first window frame on, "edges": [(keyframe slot, loop
+    keyframe slot)] added then}, or None where the program has no loop
+    closer."""
+    if loops is None:
+        return {"loop_missed": 1.0, "loop_rel_cm": float("inf")}
+    rel = []
+    for a, b in loops["edges"]:
+        if not (m["kf_valid"][a] and m["kf_valid"][b]):
+            rel.append(float("inf"))
+            continue
+        true = gt[[seq_of_frame(int(m["kf_frame_id"][k])) for k in (a, b)]]
+        rel.append(stats.rpe_mm(m["kf_pose"][[a, b]], true)[0] / 10)
+    return {"loop_missed": 0.0 if loops["closed"] > 0 else 1.0,
+            "loop_rel_cm": float(max(rel)) if rel else float("inf")}
+
+
 def readings(cfg: dict, traffic: dict, seed: int, frames, m, seq_of_frame, first_frame: int,
-             image_of):
+             image_of, loops=None):
     """The numbers compared. ``frames``: [(stream index, pose returned,
     tracked OK)] of every frame after the warm-up; ``m``: the map's arrays;
-    ``image_of(stream index)``: the frame's image as the program got it."""
+    ``image_of(stream index)``: the frame's image as the program got it;
+    ``loops``: as ``loop_readings`` takes it."""
     cam = cfg["slam"]["camera"]
     room = traffic["room"]
     gt = path_poses(traffic)
     dmf = float(cfg["sensor"]["depth_map_factor"])
     n_head = int(traffic["head_frames"])
-    head = np.stack([T for _, T, _ in frames[:n_head]])
+    if loops is not None and loops["edges"]:
+        # The keyframe of a loop edge is the one made in the frame that
+        # accepted the loop.
+        loop_at = min(int(m["kf_frame_id"][a]) for a, _ in loops["edges"])
+        n_head = min(n_head, sum(i < loop_at for i, _, _ in frames))
+    head = np.array([T for _, T, _ in frames[:n_head]], np.float64).reshape(-1, 4, 4)
     head_gt = gt[[seq_of_frame(i) for i, _, _ in frames[:n_head]]]
     kf = np.flatnonzero(m["kf_valid"])
     kf = kf[np.argsort(m["kf_frame_id"][kf])]
@@ -147,11 +179,12 @@ def readings(cfg: dict, traffic: dict, seed: int, frames, m, seq_of_frame, first
     return {
         "lost_frames": float(sum(not ok for _, _, ok in frames)),
         "ate_head_ratio": ate_ratio(head, head_gt),
-        "pose_orth": float(reference.orthonormality(head).max()),
+        "pose_orth": float(reference.orthonormality(head).max()) if n_head else float("inf"),
         "depth_rel_p99": float(np.percentile(gaps, 99)) if len(gaps) else float("inf"),
         "desc_bits_mean": float(bits.mean()) if len(bits) else float("inf"),
         "kf_rel_cm": float(np.mean(rel)) if rel else float("inf"),
         "map_surface_mm": float(np.median(dists)) * 1e3 if len(dists) else float("inf"),
+        **loop_readings(m, seq_of_frame, gt, loops),
     }
 
 
@@ -187,10 +220,13 @@ def control_readings(cfg: dict, traffic: dict, seed: int, frames, m, seq_of_fram
 
 
 def judge(values: dict, limits: dict):
-    """(correct, [(name, value, limit, ok)]): every number at or under its
-    limit."""
+    """(correct, [(name, value, limit, ok)]) over the numbers that ``limits``
+    lists: every one at or under its limit."""
+    unknown = set(limits) - set(CHECKS)
+    if unknown:
+        raise ValueError(f"limits for unknown checks {sorted(unknown)}")
     rows = []
-    for name in CHECKS:
+    for name in (c for c in CHECKS if c in limits):
         v, lim = values[name], float(limits[name])
         rows.append((name, v, lim, bool(np.isfinite(v) and v <= lim)))
     return all(r[3] for r in rows), rows

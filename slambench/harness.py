@@ -6,6 +6,16 @@ on a first run), render one pass of the traffic's sequence on the card and
 hold it in host memory as decoded frames, build ``SlamSystem`` from the
 configuration file and track the traffic's ``warm_frames`` on it.
 
+A traffic that names ``resume_frames`` N resumes a saved session instead:
+the system is loaded with ``load_checkpoint`` from
+``build/slambench/resume-<key>.npz``, which the first run in a checkout
+writes after tracking stream frames 0..N-1 (``resume_key`` hashes what the
+saved map depends on), and the warm-up tracks from stream frame N on.
+Before that, a throwaway copy of the session runs the loop closer's two
+steps once (``warm_loop_path``), so that what they load on first use falls
+in set-up and not in the window's loop frame. In a cell that reports
+``loop_stall_ms`` the window also watches the loop closer.
+
 Window: the same stream goes on through ``SlamSystem.track_rgbd`` as a
 closed loop, each frame handed over when the previous pose has returned,
 until ``--seconds`` have passed; then one synchronize. The harness adds no
@@ -21,9 +31,12 @@ freed, and the run fails if JAX or the JAX package was loaded.
 from __future__ import annotations
 
 import dataclasses
+import gc
+import hashlib
 import importlib.util
 import json
 import math
+import os
 import sys
 import time
 from pathlib import Path
@@ -35,6 +48,9 @@ ROOT = BENCH.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "pslam_tpu")
 TRACE_FRAMES = 6
 RENDER_BATCH = 16
+RESUME_DIR = ROOT / "build" / "slambench"
+# The benchmark's own files that make the frames a saved session was built from.
+FRAME_FILES = ("harness.py", "scene.py", "traffic.py")
 
 
 class NoResult(Exception):
@@ -123,6 +139,67 @@ def render_pass(cfg: dict, traffic: dict, seed: int, device):
     return grays, depths
 
 
+def resume_key(cfg: dict, traffic: dict, seed: int, port: Path | None = None) -> str:
+    """Hash of what a saved session depends on: every file of the port
+    (``port``, by default ``pslam_tpu_torch/`` beside the benchmark), the
+    benchmark's files that make the frames, the configuration, the traffic
+    and the seed."""
+    port = port or ROOT / "pslam_tpu_torch"
+    named = [(f"port/{f.relative_to(port)}", f) for f in sorted(port.rglob("*"))
+             if f.is_file() and "__pycache__" not in f.parts]
+    named += [(f"slambench/{name}", BENCH / name) for name in FRAME_FILES]
+    h = hashlib.sha256()
+    for name, f in named:
+        h.update(name.encode() + b"\0" + f.read_bytes())
+    h.update(json.dumps([cfg, traffic, int(seed)], sort_keys=True).encode())
+    return h.hexdigest()[:24]
+
+
+def build_resume(cfg: dict, grays, depths, seq, fps: float, n: int, device, path: Path) -> int:
+    """Track stream frames 0..n-1 on a new ``SlamSystem`` and save it to
+    ``path`` (written under another name, then renamed, so that a run cut
+    short leaves no half file). Returns the frames it left not OK."""
+    from pslam_tpu_torch.io.checkpoint import save_checkpoint
+    from pslam_tpu_torch.pipeline.system import SlamSystem, TrackState
+
+    slam = SlamSystem(slam_config(cfg), device=device)
+    lost = 0
+    for i in range(n):
+        k = seq(i)
+        slam.track_rgbd(grays[k], depths[k], i / fps)
+        lost += slam.state != TrackState.OK
+    path.parent.mkdir(parents=True, exist_ok=True)
+    part = path.with_name(path.stem + ".part.npz")
+    save_checkpoint(slam, str(part))
+    os.replace(part, path)
+    return lost
+
+
+def warm_loop_path(cfg: dict, path: Path, device, tries: int = 5) -> bool:
+    """Run the loop closer's ``compute_sim3`` and ``correct_loop`` once on a
+    throwaway copy of the saved session at ``path``, with its newest keyframe
+    and a strongly covisible one standing in for a loop. On the card the
+    first ``compute_sim3`` that reaches its RANSAC in a process took ~6.7 s
+    more than later ones (8.4-10.1 s loop frames in new processes against
+    2.6-2.8 s in a warm one, one H100): without this the window's loop frame
+    would time that. Returns whether a correction ran."""
+    from pslam_tpu_torch.io.checkpoint import load_checkpoint
+
+    slam = load_checkpoint(str(path), slam_config(cfg), device)
+    lc, m = slam.loop_closer, slam.map
+    if lc is None:
+        return False
+    kfs = np.flatnonzero(m.kf_valid[: m.n_kf])
+    kf = int(kfs[np.argmax(m.kf_frame_id[kfs])])
+    for cand in m.best_covisible(kf, tries):
+        out = lc.compute_sim3(kf, [int(cand)])
+        if out is not None:
+            loop_kf, Scw, mp_ids, proj_idx, _ = out
+            lc.correct_loop(kf, loop_kf, Scw, mp_ids, proj_idx)
+            return True
+    return False
+
+
 def _map_arrays(m) -> dict:
     keys = ("kf_valid", "kf_pose", "kf_frame_id", "kf_uv", "kf_level", "kf_desc", "kf_feat_depth",
             "kf_feat_mp",
@@ -133,7 +210,10 @@ def _map_arrays(m) -> dict:
 def _counters(slam) -> dict:
     c = {k: int(v) for k, v in slam.stats.items()}
     if slam.loop_closer is not None:
-        c["loops_closed"] = int(slam.loop_closer.stats.get("closed", 0))
+        st = slam.loop_closer.stats
+        c["loops_closed"] = int(st.get("closed", 0))
+        for k in ("detected", "gba_runs", "fuse_only"):
+            c[f"loop_{k}"] = int(st.get(k, 0))
     return c
 
 
@@ -154,11 +234,12 @@ class LayerRun:
 
 def run(workload: str, seed: int, seconds: float, trace: bool, *, process_age=None,
         control: bool = False, device: str = "cuda", config_override: dict | None = None,
-        traffic_override: dict | None = None) -> dict:
+        traffic_override: dict | None = None, resume_dir: Path | None = None) -> dict:
     """One run; returns the result object (``checks`` last). With
     ``control`` the control's readings are judged in the program's place and
     decide ``correct``; the program's verdict goes on an earlier line. The
-    tests pass the CPU and small stand-ins for the cell's files."""
+    tests pass the CPU, small stand-ins for the cell's files and a directory
+    for saved sessions."""
     t_start = time.perf_counter()
     age0 = process_age() if process_age is not None else 0.0
     cell, cfg, traffic, e2e, per_layer = resolve_cell(workload)
@@ -197,6 +278,20 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, process_age=No
     def seq(i: int) -> int:
         return replay_index(traffic, n_pass, i)
 
+    start = int(traffic.get("resume_frames", 0))
+    resume = None
+    if start:
+        resume = (resume_dir or RESUME_DIR) / f"resume-{resume_key(cfg, traffic, seed)}.npz"
+        resume_info = {"frames": start, "built": not resume.exists(), "lost": None}
+        if resume_info["built"]:
+            resume_info["lost"] = build_resume(cfg, grays, depths, seq, fps, start, device,
+                                               resume)
+            gc.collect()
+        parts["resume_build"] = time.perf_counter() - t_start - sum(parts.values())
+        resume_info["loop_warmed"] = warm_loop_path(cfg, resume, device)
+        gc.collect()
+        parts["loop_warm"] = time.perf_counter() - t_start - sum(parts.values())
+
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
@@ -212,21 +307,33 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, process_age=No
                     seen.add((target, name))
                     spans.install(target, name, cap[0] if cap else None)
 
-    slam = SlamSystem(slam_config(cfg), device=device)
-    parts["system"] = time.perf_counter() - t_start - sum(parts.values())
-    warm = int(traffic["warm_frames"])
-    for i in range(warm):
+    if resume is not None:
+        from pslam_tpu_torch.io.checkpoint import load_checkpoint
+
+        slam = load_checkpoint(str(resume), slam_config(cfg), device)
+        parts["resume_load"] = time.perf_counter() - t_start - sum(parts.values())
+    else:
+        slam = SlamSystem(slam_config(cfg), device=device)
+        parts["system"] = time.perf_counter() - t_start - sum(parts.values())
+    first = start + int(traffic["warm_frames"])
+    for i in range(start, first):
         k = seq(i)
         slam.track_rgbd(grays[k], depths[k], i / fps)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
-    # The window.
+    # The window. In a cell that reports loop_stall_ms, a frame in whose
+    # track_rgbd call the loop closer accepted a loop is a loop frame.
     before = _counters(slam)
+    lc = slam.loop_closer
+    closed0 = lc.stats["closed"] if lc is not None else 0
+    edges0 = set(lc.loop_edges) if lc is not None else set()
+    watch = lc if any(m_["name"] == "loop_stall_ms" for m_ in e2e) else None
+    closed, loop_frames = closed0, []
     launches0 = (fused_match.LAUNCHES, fused_pose.LAUNCHES)
     spans.timing = trace
     frames, latency = [], []
-    i = warm
+    i = first
     t0 = time.perf_counter()
     parts["warm"] = t0 - t_start - sum(parts.values())
     parts["before_main"] = age0
@@ -238,6 +345,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, process_age=No
         b = time.perf_counter()
         latency.append(b - a)
         frames.append((i, np.array(T, np.float64), slam.state == TrackState.OK))
+        if watch is not None and watch.stats["closed"] != closed:
+            closed = watch.stats["closed"]
+            loop_frames.append((i, b - a))
         i += 1
         if b - t0 >= seconds:
             break
@@ -277,6 +387,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, process_age=No
         "setup_s": setup_s,
         "frames_per_s": stats.rate(n_win, window_s),
         "frame_ms_p90": stats.p90(latency) * 1e3,
+        "loop_stall_ms": max((s for _, s in loop_frames), default=math.inf) * 1e3,
     }
     layer_values = {}
     if trace:
@@ -291,18 +402,23 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, process_age=No
     # The comparison, on what the window (and the traced frames) produced.
     slam.flush()
     m = _map_arrays(slam.map)
+    loops = None
+    if lc is not None and slam.loop_closer is lc:
+        # Loops accepted from the first window frame to the end of the run.
+        loops = {"closed": lc.stats["closed"] - closed0,
+                 "edges": [e for e in lc.loop_edges if e not in edges0]}
     failed = sum(not ok for _, _, ok in frames[:n_win]) + max(0, head_frames - n_win)
     def image_of(i: int):
         return grays[seq(i)]
 
-    values = check.readings(cfg, traffic, seed, frames, m, seq, warm, image_of)
+    values = check.readings(cfg, traffic, seed, frames, m, seq, first, image_of, loops=loops)
     correct, rows = check.judge(values, cfg["limits"])
     if control:
         # The reference computed in TF32 in the program's place, judged as
         # the program is: the precision numbers are the control's.
         print(json.dumps({"program": {"correct": correct, "checks": values}}))
         values = {**values,
-                  **check.control_readings(cfg, traffic, seed, frames, m, seq, warm, image_of)}
+                  **check.control_readings(cfg, traffic, seed, frames, m, seq, first, image_of)}
         correct, rows = check.judge(values, cfg["limits"])
     del slam
     if dev.type == "cuda":
@@ -314,7 +430,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, process_age=No
                       "frame_ms_median": float(np.median(latency)) * 1e3,
                       "frame_ms_max": float(np.max(latency)) * 1e3,
                       "memory_peak_mib": peak / 2**20, "first_pass_frames": n_pass,
-                      "setup_parts_s": parts, "stream_frames": i}))
+                      "setup_parts_s": parts, "stream_frames": i,
+                      "loop_frames": [[f, s * 1e3] for f, s in loop_frames],
+                      **({"resume": resume_info} if resume is not None else {})}))
     if trace and dtrace is not None:
         print(json.dumps({"trace": {"activities": len(dtrace.activities),
                                     "unlinked": sum(a[3] is None for a in dtrace.activities),

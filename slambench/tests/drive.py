@@ -52,17 +52,17 @@ def main(argv=None) -> int:
     cfg_o = json.loads(Path(args.config).read_text()) if args.config else None
     traffic_o = json.loads(Path(args.traffic).read_text()) if args.traffic else None
     cfg, traffic = cfg_o or cfg, traffic_o or traffic
-    warm = int(traffic["warm_frames"])
+    first = int(traffic.get("resume_frames", 0)) + int(traffic["warm_frames"])
     if args.fault:
-        planted.plant(args.fault, warm)
+        planted.plant(args.fault, first)
 
     seen = {}
     real_readings, real_control = check.readings, check.control_readings
 
-    def readings(cfg, traffic, seed, frames, m, seq_of_frame, first_frame, image_of):
+    def readings(cfg, traffic, seed, frames, m, seq_of_frame, first_frame, image_of, **kw):
         seen.update(frames=frames, m=m, seq=seq_of_frame)
         seen["program"] = real_readings(cfg, traffic, seed, frames, m, seq_of_frame,
-                                        first_frame, image_of)
+                                        first_frame, image_of, **kw)
         return seen["program"]
 
     def control_readings(*a):
@@ -95,7 +95,7 @@ def main(argv=None) -> int:
                      frame_T=np.stack([T for _, T, _ in frames]),
                      frame_ok=np.array([ok_ for _, _, ok_ in frames]),
                      kf_valid=m["kf_valid"], kf_pose=m["kf_pose"],
-                     kf_frame_id=m["kf_frame_id"], kf_seq=kf_seq, first_frame=warm)
+                     kf_frame_id=m["kf_frame_id"], kf_seq=kf_seq, first_frame=first)
     return 0
 
 
