@@ -16,12 +16,25 @@ steps once (``warm_loop_path``), so that what they load on first use falls
 in set-up and not in the window's loop frame. In a cell that reports
 ``loop_stall_ms`` the window also watches the loop closer.
 
-Window: the same stream goes on through ``SlamSystem.track_rgbd`` as a
-closed loop, each frame handed over when the previous pose has returned,
-until ``--seconds`` have passed; then one synchronize. The harness adds no
-other synchronize. ``--trace 1`` wraps the spans the cell's per-layer
-readers name, times them over the window, then profiles ``TRACE_FRAMES``
-more frames of the stream for the device metrics.
+Window: the same stream goes on through the configuration's drive as a
+closed loop until ``--seconds`` have passed; then one synchronize. The
+harness adds no other synchronize. The drive (``slam.drive``) is how the
+client calls the system:
+
+- ``track_rgbd`` (where the key is absent): each frame is handed over when
+  the previous pose has returned; a frame's latency is its call;
+- ``track_rgbd_pipelined``: depth 1, frame i+1 handed over when the call
+  that took frame i returns (with the pose of frame i-1). ``Pipelined``
+  learns which frames a call finished from ``SlamSystem._commit_frame``,
+  wrapped on this system alone, and a frame's latency runs from the start
+  of the call that took it to the end of the call that committed it. The
+  warm-up ends with ``finish()``, so the window opens with nothing in
+  flight; after the window's synchronize, ``finish()`` (untimed) commits
+  the frame left in flight for the comparison.
+
+``--trace 1`` wraps the spans the cell's per-layer readers name, times them
+over the window, then profiles ``TRACE_FRAMES`` more frames of the stream
+(pipelined cells: then ``finish()``) for the device metrics.
 
 After the window: the peak device memory is read, the map is flushed, the
 comparison decides ``correct`` (``check.py``), the program's state is
@@ -51,6 +64,8 @@ RENDER_BATCH = 16
 RESUME_DIR = ROOT / "build" / "slambench"
 # The benchmark's own files that make the frames a saved session was built from.
 FRAME_FILES = ("harness.py", "scene.py", "traffic.py")
+# How a client can call the system (``slam.drive``); the first is the default.
+DRIVES = ("track_rgbd", "track_rgbd_pipelined")
 
 
 class NoResult(Exception):
@@ -103,14 +118,24 @@ def layer_reader(name: str):
     return mod
 
 
+def drive_of(cfg: dict) -> str:
+    """The configuration's drive (``slam.drive``, by default ``track_rgbd``);
+    another value gives no result."""
+    drive = cfg["slam"].get("drive", DRIVES[0])
+    if drive not in DRIVES:
+        raise NoResult(f"unknown drive {drive!r}: one of {', '.join(DRIVES)}")
+    return drive
+
+
 def slam_config(cfg: dict):
-    """The configuration file's ``slam`` block as a ``SlamConfig``: each
-    group replaces the defaults' fields of the same name; an unknown key
-    raises."""
+    """The configuration file's ``slam`` block, less its ``drive``, as a
+    ``SlamConfig``: each group replaces the defaults' fields of the same
+    name; an unknown key raises."""
     from pslam_tpu_torch.utils.config import SlamConfig
 
     base = SlamConfig()
     s = dict(cfg["slam"])
+    s.pop("drive", None)
     groups = {g: dataclasses.replace(getattr(base, g), **s.pop(g))
               for g in ("camera", "orb", "lines", "caps", "tracking", "plane_assoc") if g in s}
     return dataclasses.replace(base, **groups, **s)
@@ -221,6 +246,49 @@ def _delta(after: dict, before: dict) -> dict:
     return {k: after[k] - before.get(k, 0) for k in after}
 
 
+class Pipelined:
+    """The client of a ``track_rgbd_pipelined`` cell. ``call`` hands a frame
+    over and returns what the call committed; which frames those are comes
+    from ``SlamSystem._commit_frame``, wrapped on ``slam`` alone, each
+    committed ``frame_id`` mapped to its stream index through the
+    ``slam.frame_id`` recorded at its hand-over. ``is_ok(slam)`` reads the
+    state just after a commit."""
+
+    def __init__(self, slam, is_ok, clock=time.perf_counter):
+        self.slam, self.clock = slam, clock
+        self.handed = {}  # frame id -> (stream index, start of the call that took it)
+        self._done = []
+        commit = slam._commit_frame
+
+        def wrapped(hf):
+            commit(hf)
+            self._done.append((hf.frame_id, np.array(hf.T_cw, np.float64), is_ok(slam)))
+
+        slam._commit_frame = wrapped
+
+    def call(self, i: int, gray, depth, timestamp: float):
+        """Hand stream frame ``i`` over. Returns (end of the call,
+        [(stream index, pose, OK, latency s)] of the frames it committed)."""
+        a = self.clock()
+        self.handed[self.slam.frame_id] = (i, a)
+        self.slam.track_rgbd_pipelined(gray, depth, timestamp)
+        b = self.clock()
+        return b, self._collect(b)
+
+    def finish(self):
+        """``finish()``: commit the frame in flight; returns as ``call``."""
+        self.slam.finish()
+        return self._collect(self.clock())
+
+    def _collect(self, b: float):
+        out = []
+        for fid, T, ok in self._done:
+            i, a = self.handed.pop(fid)
+            out.append((i, T, ok, b - a))
+        self._done.clear()
+        return out
+
+
 class LayerRun:
     """What a per-layer reader reads: the spans, the device trace of the
     profiled frames, and the program's counters over the window."""
@@ -247,6 +315,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, process_age=No
         cfg = config_override
     if traffic_override is not None:
         traffic = traffic_override
+    drive = drive_of(cfg)
+    pipelined = drive == "track_rgbd_pipelined"
 
     import torch
 
@@ -316,9 +386,13 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, process_age=No
         slam = SlamSystem(slam_config(cfg), device=device)
         parts["system"] = time.perf_counter() - t_start - sum(parts.values())
     first = start + int(traffic["warm_frames"])
+    track = slam.track_rgbd_pipelined if pipelined else slam.track_rgbd
     for i in range(start, first):
         k = seq(i)
-        slam.track_rgbd(grays[k], depths[k], i / fps)
+        track(grays[k], depths[k], i / fps)
+    if pipelined:
+        slam.finish()
+        pipe = Pipelined(slam, lambda s: s.state == TrackState.OK)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
@@ -338,25 +412,38 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, process_age=No
     parts["warm"] = t0 - t_start - sum(parts.values())
     parts["before_main"] = age0
     setup_s = age0 + (t0 - t_start)
-    while True:
-        k = seq(i)
-        a = time.perf_counter()
-        T = slam.track_rgbd(grays[k], depths[k], i / fps)
-        b = time.perf_counter()
-        latency.append(b - a)
-        frames.append((i, np.array(T, np.float64), slam.state == TrackState.OK))
-        if watch is not None and watch.stats["closed"] != closed:
-            closed = watch.stats["closed"]
-            loop_frames.append((i, b - a))
-        i += 1
-        if b - t0 >= seconds:
-            break
+    if pipelined:
+        while True:
+            k = seq(i)
+            b, done = pipe.call(i, grays[k], depths[k], i / fps)
+            for j, T, ok, lat in done:
+                frames.append((j, T, ok))
+                latency.append(lat)
+            i += 1
+            if b - t0 >= seconds:
+                break
+    else:
+        while True:
+            k = seq(i)
+            a = time.perf_counter()
+            T = slam.track_rgbd(grays[k], depths[k], i / fps)
+            b = time.perf_counter()
+            latency.append(b - a)
+            frames.append((i, np.array(T, np.float64), slam.state == TrackState.OK))
+            if watch is not None and watch.stats["closed"] != closed:
+                closed = watch.stats["closed"]
+                loop_frames.append((i, b - a))
+            i += 1
+            if b - t0 >= seconds:
+                break
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     window_s = time.perf_counter() - t0
     spans.timing = False
     counters = _delta(_counters(slam), before)
     launches = (fused_match.LAUNCHES - launches0[0], fused_pose.LAUNCHES - launches0[1])
+    if pipelined:
+        frames.extend(f[:3] for f in pipe.finish())
 
     dtrace = None
     if trace:
@@ -368,9 +455,15 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, process_age=No
             p0 = time.perf_counter()
             for _ in range(TRACE_FRAMES):
                 k = seq(i)
-                T = slam.track_rgbd(grays[k], depths[k], i / fps)
-                frames.append((i, np.array(T, np.float64), slam.state == TrackState.OK))
+                if pipelined:
+                    _, done = pipe.call(i, grays[k], depths[k], i / fps)
+                    frames.extend(f[:3] for f in done)
+                else:
+                    T = slam.track_rgbd(grays[k], depths[k], i / fps)
+                    frames.append((i, np.array(T, np.float64), slam.state == TrackState.OK))
                 i += 1
+            if pipelined:
+                frames.extend(f[:3] for f in pipe.finish())
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             traced_s = time.perf_counter() - p0
@@ -424,7 +517,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, process_age=No
     if dev.type == "cuda":
         torch.cuda.empty_cache()
 
-    print(json.dumps({"seed": seed, "counters": counters, "window_frames": n_win,
+    print(json.dumps({"seed": seed, "drive": drive, "counters": counters, "window_frames": n_win,
                       "window_s": window_s, "traced_frames": TRACE_FRAMES if trace else 0,
                       "k1_per_frame": launches[0] / n_win, "k2_per_frame": launches[1] / n_win,
                       "frame_ms_median": float(np.median(latency)) * 1e3,
@@ -454,7 +547,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, *, process_age=No
     if trace and dtrace is not None:
         dev_info["busy_s"] = dtrace.busy_s()
         dev_info["window_s"] = dtrace.window_s
-        order = ["system", "tracking", "mapping", "local_ba", "local_ba_commit", "loop", "k1", "k2"]
+        order = ["pipeline", "system", "tracking", "pipeline.finish", "pipeline.wait", "mapping",
+                 "local_ba", "local_ba_commit", "loop", "k1", "k2"]
         result["breakdown"] = {"device_ops": dtrace.top_ops(),
                                "idle_gaps": dtrace.idle_gaps([s for s in order
                                                               if s in dtrace.ranges])}

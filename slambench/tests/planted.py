@@ -6,10 +6,14 @@ called in a process of its own (``drive.py``), from the first frame after
 the warm-up on (``first``, the window's first stream frame):
 
 - ``state_unchanged``: the tracking step returns the last pose and does
-  nothing else (no keyframe is made);
+  nothing else (no keyframe is made); through ``track_rgbd_pipelined``,
+  the call finishes the frame in flight and commits its own frame at once
+  with the last pose;
 - ``stale_pose``: the tracking step runs in full, keyframes included, but
   the pose it hands on is the last one, so the stream's poses and the
-  window's keyframes stay where the warm-up left them;
+  window's keyframes stay where the warm-up left them; through
+  ``track_rgbd_pipelined``, the summary that finishes a frame carries the
+  last pose (the device chain runs on);
 - ``half_left_out``: every second feature's depth reads 0;
 - ``answer_altered``: every depth is read 0.1% long;
 - ``loop_skipped``: the loop closer's ``on_new_keyframe`` does nothing and
@@ -41,7 +45,20 @@ def plant(fault: str, first: int) -> None:
             return system.HostFrame(frame_id=self.frame_id, timestamp=float(timestamp),
                                     T_cw=self.last.T_cw.copy())
 
+        real_pipelined = S.track_rgbd_pipelined
+
+        def pipelined(self, gray, depth, timestamp):
+            if self.frame_id < first:
+                return real_pipelined(self, gray, depth, timestamp)
+            self._drain_pipeline()
+            hf = system.HostFrame(frame_id=self.frame_id, timestamp=float(timestamp),
+                                  T_cw=self.last.T_cw.copy())
+            self.frame_id += 1
+            self._commit_frame(hf)
+            return hf.T_cw
+
         S._track_fused = track
+        S.track_rgbd_pipelined = pipelined
     elif fault == "stale_pose":
         real_step = S._frame_step
 
@@ -54,7 +71,18 @@ def plant(fault: str, first: int) -> None:
                                                       dtype=summary.dtype, device=summary.device)
             return out._replace(summary=summary)
 
+        real_finish = S._finish_pipelined
+
+        def finish(self, item):
+            if item["fid"] < first:
+                return real_finish(self, item)
+            summary = torch.as_tensor(S._end_read(item["summary"])).clone()
+            summary[frame_step.S_T] = torch.as_tensor(self.last.T_cw.reshape(16),
+                                                      dtype=summary.dtype)
+            return real_finish(self, {**item, "summary": (summary, None)})
+
         S._frame_step = step
+        S._finish_pipelined = finish
     elif fault in ("half_left_out", "answer_altered"):
         real_gather = frame_ops.gather_pixels
 

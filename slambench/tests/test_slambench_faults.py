@@ -20,12 +20,14 @@ from .conftest import BENCH, small_config, small_traffic
 SEED = 2**31 + 7
 
 
-def _drive(tmp_path, traffic="fr1desk", fault=None, control=0):
+def _drive(tmp_path, traffic="fr1desk", fault=None, control=0, pipelined=False):
     cfg, tr = tmp_path / "config.json", tmp_path / "traffic.json"
-    cfg.write_text(json.dumps(small_config()))
+    cfg.write_text(json.dumps(small_config("tum1-points-pipelined" if pipelined
+                                           else "tum1-points")))
     tr.write_text(json.dumps(small_traffic(traffic)))
+    workload = f"points-{'pipelined-' if pipelined else ''}{traffic}"
     cmd = [sys.executable, str(BENCH / "tests" / "drive.py"), "--workload",
-           f"points-{traffic}", "--seeds", str(SEED), "--seconds", "4", "--device", "cpu",
+           workload, "--seeds", str(SEED), "--seconds", "4", "--device", "cpu",
            "--config", str(cfg), "--traffic", str(tr), "--control", str(control)]
     if fault:
         cmd += ["--fault", fault]
@@ -56,6 +58,26 @@ def test_sound_run_is_correct_and_control_fails(tmp_path):
 ])
 def test_faults_make_the_run_incorrect(tmp_path, fault, traffic, fails):
     r, _ = _drive(tmp_path, traffic, fault=fault)
+    assert not r["program_correct"]
+    v, lim = r["program"][fails], small_config()["limits"][fails]
+    assert not np.isfinite(v) or v > lim, r["program"]
+
+
+def test_pipelined_sound_run_is_correct_and_control_fails(tmp_path):
+    r, err = _drive(tmp_path, control=1, pipelined=True)
+    assert r["program_correct"] and r["attempted"] > 0, r["program"]
+    assert r["control_correct"] is False, r["control"]
+    assert "FAILED" in "".join(err.splitlines()[-len(check.CHECKS):])
+
+
+@pytest.mark.parametrize("fault,fails", [
+    ("state_unchanged", "ate_head_ratio"),
+    ("stale_pose", "ate_head_ratio"),
+    ("half_left_out", "depth_rel_p99"),
+    ("answer_altered", "depth_rel_p99"),
+])
+def test_pipelined_faults_make_the_run_incorrect(tmp_path, fault, fails):
+    r, _ = _drive(tmp_path, fault=fault, pipelined=True)
     assert not r["program_correct"]
     v, lim = r["program"][fails], small_config()["limits"][fails]
     assert not np.isfinite(v) or v > lim, r["program"]

@@ -71,3 +71,66 @@ def test_spans_wrap_and_restore():
     assert s.count("rate") == 1 and s.captured["rate"] == [4]
     s.remove()
     assert target.rate is orig
+
+
+class _Holder:
+    @staticmethod
+    def stat(x):
+        return x + 1
+
+    @classmethod
+    def klass(cls, x):
+        return (cls.__name__, x)
+
+
+def test_spans_wrap_and_restore_static_and_class_methods():
+    import inspect
+
+    import numpy as np
+
+    from pslam_tpu_torch.pipeline.system import SlamSystem
+
+    slam = object.__new__(SlamSystem)
+    targets = [("pslam_tpu_torch.pipeline.system:SlamSystem._end_read", SlamSystem, "_end_read"),
+               (f"{__name__}:_Holder.stat", _Holder, "stat"),
+               (f"{__name__}:_Holder.klass", _Holder, "klass")]
+    raws = [inspect.getattr_static(owner, attr) for _, owner, attr in targets]
+    s = Spans()
+    for target, _, attr in targets:
+        s.install(target, attr)
+    s.timing = True
+    for raw, (_, owner, attr) in zip(raws, targets):
+        assert type(inspect.getattr_static(owner, attr)) is type(raw)
+    np.testing.assert_array_equal(slam._end_read((torch.arange(3.0), None)), [0.0, 1.0, 2.0])
+    assert _Holder().stat(1) == _Holder.stat(1) == 2
+    assert _Holder().klass(3) == ("_Holder", 3)
+    assert [s.count(a) for _, _, a in targets] == [1, 2, 1]
+    s.remove()
+    for raw, (_, owner, attr) in zip(raws, targets):
+        assert inspect.getattr_static(owner, attr) is raw
+    np.testing.assert_array_equal(slam._end_read((torch.ones(2), None)), [1.0, 1.0])
+    assert _Holder().stat(1) == 2 and s.count("stat") == 2
+
+
+def test_pipeline_readers_on_fixed_spans_and_trace():
+    spans = Spans()
+    spans.records["pipeline"] = [(0.0, 0.3), (1.0, 1.2), (2.0, 2.5), (3.0, 3.2)]
+    spans.records["pipeline.finish"] = [(1.1, 1.2), (2.1, 2.5), (3.1, 3.2)]
+    spans.records["pipeline.wait"] = [(1.1, 1.101), (2.1, 2.102), (3.1, 3.103)]
+    spans.records["mapping"] = [(2.2, 2.4)]
+    acts = [("a", 0, 1, 5), ("b", 0, 1, 15), ("c", 0, 1, 28), ("d", 0, 1, 45), ("e", 0, 1, 95),
+            ("f", 0, 1, 41)]
+    ranges = {"pipeline": [(0, 10), (20, 30)], "pipeline.finish": [(22, 30), (40, 50)],
+              "mapping": [(24, 26), (42, 48)]}
+    run = harness.LayerRun(spans, DeviceTrace(acts, ranges, 1e-6), {})
+    read = lambda name: harness.layer_reader(name).read(run)
+    assert read("pipeline.dispatch_ms_per_frame") == pytest.approx((1.2 - 0.6) / 4 * 1e3)
+    assert read("pipeline.finish_ms_per_frame") == pytest.approx((0.6 - 0.2) / 3 * 1e3)
+    assert read("pipeline.wait_ms_per_frame") == pytest.approx(0.006 / 3 * 1e3)
+    # a (a dispatch), c (a finish inside a call) and f (the closing
+    # finish()) count; b (between ranges), d (a keyframe) and e do not.
+    assert read("pipeline.launches_per_frame") == 1.5
+    empty = harness.LayerRun(Spans(), DeviceTrace([], {}, 1e-6), {})
+    assert all(harness.layer_reader(n).read(empty) is None
+               for n in ("pipeline.dispatch_ms_per_frame", "pipeline.finish_ms_per_frame",
+                         "pipeline.wait_ms_per_frame", "pipeline.launches_per_frame"))

@@ -23,6 +23,7 @@ from __future__ import annotations
 import bisect
 import functools
 import importlib
+import inspect
 import time
 from collections import defaultdict
 
@@ -52,10 +53,14 @@ class Spans:
         self._undo = []
 
     def install(self, target: str, name: str, capture=None):
+        """Wrap ``target``; a ``staticmethod`` or ``classmethod`` stays one,
+        and ``remove`` puts back the object that was there."""
         import torch
 
         owner, attr = resolve(target)
-        fn = getattr(owner, attr)
+        raw = inspect.getattr_static(owner, attr)
+        kind = type(raw) if isinstance(raw, (staticmethod, classmethod)) else None
+        fn = raw.__func__ if kind else raw
         records, captured, label = self.records[name], self.captured[name], PREFIX + name
 
         @functools.wraps(fn)
@@ -70,8 +75,8 @@ class Spans:
                 if self.timing:
                     records.append((t0, time.perf_counter()))
 
-        setattr(owner, attr, wrapper)
-        self._undo.append((owner, attr, fn))
+        setattr(owner, attr, kind(wrapper) if kind else wrapper)
+        self._undo.append((owner, attr, raw))
 
     def remove(self):
         for owner, attr, fn in reversed(self._undo):
