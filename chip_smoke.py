@@ -37,6 +37,17 @@ non-zero exit and no result line):
    identity with the unmatched slots at the origin), 49 K2 and 44 LM
    launches a solve; 98 K2 and 88 LM launches (``stats["pose_lm_steps"]``)
    a one-step frame of the 320x240 configs 1 and 3; the step's times.
+3c. the local BA through ``solver/local_ba.BA_GRAPHS`` (one captured CUDA
+   graph a problem shape) at the main path's capacities (48 cameras, 16
+   free, 4096 points, 16384 edges; and half of that), point and LIL
+   solvers: four problems of one key and two of another, each call's result
+   bit-identical to the eager solver's on the same fixed-width tables; 1
+   eager call, 1 capture and 1-2 replays a key; a result held across two
+   replays of its graph unchanged; the first problem's solve on the card
+   against the CPU's (exact-width tables): the differences printed, poses
+   within 1e-2 and >= 99% of the inlier flags equal; host ms a call (eager,
+   capture, replay), peak memory before and after, and a replay's time
+   between CUDA events.
 4. the slice: ``SlamSystem(SlamConfig(use_lines=False, use_bow=False,
    use_loop_closing=False), device="cuda")`` at 640x480 with default
    capacities over 60 synthetic frames; every frame tracked, >= 3 keyframes,
@@ -862,6 +873,105 @@ def _phase_lm(fused_pose, dev, small_cfgs):
     it_host = _host_us(iteration)
     print(f"[3b LM] step: {_fmt_timings(t)}; one K2 + step iteration {it_host:.1f} us of host")
     return dict(it_host_us=it_host, **t)
+
+
+def _phase_ba_graph(dev):
+    """Phase 3c: the local BA through ``local_ba.BA_GRAPHS`` (one captured
+    CUDA graph a problem shape) against the eager solver, at the main path's
+    capacities, for the point and the LIL solver; the counters; a held
+    result under the next replay; host ms a call and peak memory."""
+    from torch.utils._pytree import tree_map_only
+
+    from pslam_tpu_torch.apps.profile_backend import random_ba_problem, random_lil_problem
+    from pslam_tpu_torch.solver import local_ba
+    from pslam_tpu_torch.solver.ba_lil import local_bundle_adjustment_lil
+    from pslam_tpu_torch.utils.config import SlamConfig
+    from pslam_tpu_torch.utils.cuda_graph import GraphCache
+
+    cfg = SlamConfig()
+    cam, n_free = cfg.camera, cfg.caps.ba_free
+    rng = np.random.default_rng(36)
+    big, _, _ = random_ba_problem(cfg, rng, cfg.caps.ba_points, cfg.caps.ba_edges, dev)
+    small, _, _ = random_ba_problem(cfg, rng, cfg.caps.ba_points // 2, cfg.caps.ba_edges // 2,
+                                    dev)
+    lil_big = random_lil_problem(cfg, rng, dev, Q=64)
+    lil_small = random_lil_problem(cfg, rng, dev, Q=32)
+
+    def nudged(prob, k):
+        # Another problem of the same key: the same edges, moved points.
+        g = torch.Generator(device=dev).manual_seed(k)
+        return prob._replace(X_w=prob.X_w + 0.01 * torch.randn(prob.X_w.shape, generator=g,
+                                                               device=dev))
+
+    solvers = {
+        "points": (lambda p, lil, r: local_ba.local_bundle_adjustment(cam, p, n_free, ranks=r),
+                   (big, None), (small, None)),
+        "LIL": (lambda p, lil, r: local_bundle_adjustment_lil(cam, p, *lil, n_free, ranks=r),
+                (big, lil_big), (small, lil_small)),
+    }
+    # Not ONE_DEVICE: the eager solver, on the same fixed-width tables.
+    eager_ranks = local_ba.OneDevice()
+    saved = local_ba.BA_GRAPHS
+    try:
+        for name, (solve, (p_a, lil_a), (p_b, lil_b)) in solvers.items():
+            g = local_ba.BA_GRAPHS = GraphCache()
+            calls = [nudged(p_a, k) for k in range(4)] + [p_b, nudged(p_b, 9)]
+            lils = [lil_a] * 4 + [lil_b] * 2
+            mem0 = torch.cuda.max_memory_allocated(dev)
+            worst, outs, host = 0.0, [], []
+            for k, (p, lil) in enumerate(zip(calls, lils)):
+                want = solve(p, lil, eager_ranks)
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                got = solve(p, lil, local_ba.ONE_DEVICE)
+                t1 = time.perf_counter()
+                torch.cuda.synchronize(dev)
+                host.append(((t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3))
+                for a, b in zip(got, want):
+                    if not torch.equal(a, b):
+                        d = float((a.float() - b.float()).abs().max())
+                        raise AssertionError(f"3c {name} call {k}: graph path differs from "
+                                             f"eager by {d}")
+                    worst = max(worst, float((a.float() - b.float()).abs().max()))
+                outs.append(got)
+            # The result of call 1 (the capture) after the replays of calls
+            # 2 and 3 of its graph: unchanged.
+            again = solve(calls[1], lils[1], eager_ranks)
+            for a, b in zip(outs[1], again):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"3c {name}: a held result changed under a replay")
+            counts = (g.eager, g.captures, g.replays, len(g.graphs))
+            # The card's solve (fixed-width tables) against the CPU's (exact
+            # widths: the solver tier-1 holds against the JAX package) on
+            # the first problem: rounding apart, the same solve.
+            cpu = solve(*tree_map_only(torch.Tensor, torch.Tensor.cpu, (calls[0], lils[0])),
+                        local_ba.ONE_DEVICE)
+            d_T, d_X = (float((outs[0][k].cpu() - cpu[k]).abs().max()) for k in (0, 1))
+            flags = range(3, 5) if name == "LIL" else (2,)
+            same = min(float((outs[0][k].cpu() == cpu[k]).float().mean()) for k in flags)
+            print(f"[3c BA graph] {name}: card vs CPU max |dT| {d_T:.2e}, max |dX| {d_X:.2e}, "
+                  f"inlier flags equal {same:.4%}")
+            if not (d_T < 1e-2 and same >= 0.99):
+                raise AssertionError(f"3c {name}: the card's solve is not the CPU's")
+            print(f"[3c BA graph] {name}: 6 calls over 2 keys, graph path vs eager max |diff| "
+                  f"{worst:.1e} (bit-identical), eager / captures / replays / graphs "
+                  f"{counts}; host ms a call (enqueue, to synchronized) eager "
+                  f"{host[0][0]:.1f} / {host[0][1]:.1f}, capture {host[1][0]:.1f} / "
+                  f"{host[1][1]:.1f}, replay {np.median([h[0] for h in host[2:4]]):.2f} / "
+                  f"{np.median([h[1] for h in host[2:4]]):.2f}; peak memory "
+                  f"{mem0 / 2**20:.0f} -> {torch.cuda.max_memory_allocated(dev) / 2**20:.0f} "
+                  "MiB")
+            if counts != (2, 2, 4, 2):
+                raise AssertionError(f"3c {name}: eager / captures / replays / graphs {counts},"
+                                     " not 1 eager, 1 capture and 1-2 replays a key")
+        # A replay's device time, between CUDA events.
+        p = calls[2]
+        ms = _median_ms(lambda: solvers["points"][0](p, None, local_ba.ONE_DEVICE), runs=10,
+                        warmup=1)
+        print(f"[3c BA graph] points replay at {tuple(p.cam_idx.shape)} edges: {ms:.2f} ms "
+              "between events")
+    finally:
+        local_ba.BA_GRAPHS = saved
 
 
 def _run_slice(cfg, device, n_frames, poses=None, profile=None):
@@ -2231,6 +2341,7 @@ def main():
     small3 = dataclasses.replace(small, use_lines=True, use_lils=True,
                                  lines=LineConfig(tile=8))
     lm = _phase_lm(fused_pose, dev, (("config 1 320x240", small), ("config 3 320x240", small3)))
+    _phase_ba_graph(dev)
 
     slam4, launches, tracked, ms4 = _drive_main_path("4 slice", cfg, 60, fused_match,
                                                      fused_pose)

@@ -187,9 +187,9 @@ def se3_from_Rt(R, t):
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor(
-        [0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device
-    ).expand(batch + (4,))[..., None, :]
+    # [0, 0, 0, 1] made on the device: a host tensor would be a copy that
+    # waits, and that a CUDA graph capture refuses.
+    bottom = torch.cat([torch.zeros_like(t), torch.ones_like(t[..., :1])], dim=-1)[..., None, :]
     return torch.cat([top, bottom], dim=-2)
 
 

@@ -59,9 +59,10 @@ from pslam_tpu_torch.pipeline.track_ops import (
     track_frame_to_frame,
     track_frame_to_frame_unwindowed,
 )
+from pslam_tpu_torch.solver import local_ba
 from pslam_tpu_torch.solver.ba_lil import local_bundle_adjustment_lil
 from pslam_tpu_torch.solver.initializer import InitResult, initialize_two_view, two_view_draws
-from pslam_tpu_torch.solver.local_ba import local_bundle_adjustment
+from pslam_tpu_torch.solver.local_ba import graphs_engage, local_bundle_adjustment
 from pslam_tpu_torch.utils.config import SlamConfig
 from pslam_tpu_torch.utils.trace import span
 
@@ -969,6 +970,8 @@ class SlamSystem:
         # caps.ba_edges and ba_points are powers of two, so the
         # fixed-capacity arrays divide by a power-of-two world size.
         ranks = solver_ranks(cfg)
+        graphs = local_ba.BA_GRAPHS
+        captures, replays = graphs.captures, graphs.replays
         if lil_pack is not None:
             lil_state, lil_valid, ledges, il_ids = lil_pack
             n_lil_edges = int(_np(ledges.valid).sum())
@@ -979,6 +982,9 @@ class SlamSystem:
         else:
             result = local_bundle_adjustment(cfg.camera, prob, cfg.caps.ba_free,
                                              ranks=ranks)[:3]
+        if graphs_engage(prob.T_cw, ranks):
+            self._count("ba_graph_captures", graphs.captures - captures)
+            self._count("ba_graph_replays", graphs.replays - replays)
         self._pending_ba = {
             "result": result,
             "lil_opt": lil_opt,

@@ -22,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from pslam_tpu_torch.geometry import Camera
+from pslam_tpu_torch.solver import local_ba
 from pslam_tpu_torch.solver.lil import CHI2_LIL, lil_residual_jac, lil_weights
 from pslam_tpu_torch.solver.local_ba import (
     ONE_DEVICE,
@@ -35,6 +36,7 @@ from pslam_tpu_torch.solver.local_ba import (
     _problem_plan,
     _schur_step,
     assembly_plan,
+    graphs_engage,
     lm_loop,
 )
 
@@ -74,7 +76,33 @@ def local_bundle_adjustment_lil(
     owned points ++ owned LILs form its part of the reduced camera system.
 
     Returns (T_opt, X_opt, lil_state_opt, point_edge_inlier,
-    lil_edge_inlier)."""
+    lil_edge_inlier). On one CUDA device the solve goes through
+    ``local_ba.BA_GRAPHS``; every CUDA solve sums over fixed-width tables
+    (``local_ba._problem_plan``)."""
+    if graphs_engage(prob.T_cw, ranks):
+        plans = _plans(prob, prob, ledges, n_free, lil_state.shape[0])
+
+        def solve(prob, lil_state, lil_valid, ledges, plans):
+            return _solve(cam, prob, lil_state, lil_valid, ledges, n_free, schedule,
+                          ONE_DEVICE, plans)
+
+        return local_ba.BA_GRAPHS.run(("lil", cam, n_free, tuple(schedule)), solve,
+                                      prob, lil_state, lil_valid, ledges, plans)
+    return _solve(cam, prob, lil_state, lil_valid, ledges, n_free, schedule, ranks)
+
+
+def _plans(prob: BAProblem, shard: BAProblem, lshard: LILBAEdges, n_free: int, Q: int):
+    """The point and LIL tables of a rank's edge shards, of fixed widths on
+    CUDA as ``local_ba._problem_plan``'s."""
+    return (_problem_plan(shard, n_free),
+            assembly_plan(prob.free_slot, lshard.cam_idx, lshard.lil_idx, lshard.valid, n_free,
+                          Q, fixed=lshard.cam_idx.is_cuda))
+
+
+def _solve(cam, prob, lil_state, lil_valid, ledges, n_free, schedule, ranks, plans=None):
+    """The solve of ``local_bundle_adjustment_lil``. Given the point and
+    LIL tables ``plans`` it reads nothing back to the host, so a CUDA graph
+    can hold it; without, it builds them for this rank's edge shards."""
     Q = lil_state.shape[0]
     esl = ranks.shard(prob.cam_idx.shape[0], "edge")
     lsl = ranks.shard(ledges.cam_idx.shape[0], "LIL edge")
@@ -82,9 +110,7 @@ def local_bundle_adjustment_lil(
     qsl = ranks.shard(Q, "LIL")
     shard = _edge_shard(prob, esl)
     lshard = LILBAEdges(*(a[lsl] for a in ledges))
-    plan_p = _problem_plan(shard, n_free)
-    plan_l = assembly_plan(prob.free_slot, lshard.cam_idx, lshard.lil_idx, lshard.valid,
-                           n_free, Q)
+    plan_p, plan_l = _plans(prob, shard, lshard, n_free, Q) if plans is None else plans
     lm_valid_own = torch.cat([prob.point_valid[psl], lil_valid[qsl]], dim=0)
     n_p_own = psl.stop - psl.start
 

@@ -24,6 +24,7 @@ in atomic order and would make two runs of one input differ.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -32,6 +33,7 @@ from pslam_tpu_torch.geometry import Camera, se3_exp, transform_points
 from pslam_tpu_torch.solver.linalg import inv3x3
 from pslam_tpu_torch.solver.reproj import stereo_residual_jac
 from pslam_tpu_torch.solver.robust import CHI2_MONO, CHI2_STEREO, huber_weight
+from pslam_tpu_torch.utils.cuda_graph import GraphCache
 
 
 class BAProblem(NamedTuple):
@@ -53,13 +55,17 @@ class BAProblem(NamedTuple):
     edge_valid: torch.Tensor  # (E,) bool
 
 
+@functools.cache
+def _huber_delta(chi2: float, dtype: torch.dtype) -> float:
+    """sqrt(chi2) rounded as ``dtype`` rounds it, as a Python float: a kernel
+    argument, where a device scalar would be a host-to-device copy a call
+    (one that waits, and that a CUDA graph capture refuses)."""
+    return float(torch.tensor(chi2, dtype=dtype).sqrt())
+
+
 def _gates(prob: BAProblem):
     is_stereo = prob.obs[..., 2] >= 0.0
-    return is_stereo, torch.where(
-        is_stereo,
-        torch.tensor(CHI2_STEREO, device=is_stereo.device),
-        torch.tensor(CHI2_MONO, device=is_stereo.device),
-    )
+    return is_stereo, torch.where(is_stereo, CHI2_STEREO, CHI2_MONO)
 
 
 def _edge_terms(cam: Camera, prob: BAProblem, T_all, X_all, active, use_huber: bool):
@@ -73,11 +79,8 @@ def _edge_terms(cam: Camera, prob: BAProblem, T_all, X_all, active, use_huber: b
     Jc = Jc * row_mask[..., None]
     Jp = Jp * row_mask[..., None]
     chi2 = torch.sum(r * r, dim=-1) * prob.inv_sigma2
-    delta = torch.where(
-        is_stereo,
-        torch.tensor(CHI2_STEREO, dtype=r.dtype, device=r.device).sqrt(),
-        torch.tensor(CHI2_MONO, dtype=r.dtype, device=r.device).sqrt(),
-    )
+    delta = torch.where(is_stereo, torch.full_like(chi2, _huber_delta(CHI2_STEREO, r.dtype)),
+                        _huber_delta(CHI2_MONO, r.dtype))
     w_rob = huber_weight(chi2, delta) if use_huber else torch.ones_like(chi2)
     a = active.to(r.dtype)
     w_eff = w_rob * prob.inv_sigma2 * a
@@ -85,13 +88,21 @@ def _edge_terms(cam: Camera, prob: BAProblem, T_all, X_all, active, use_huber: b
     return chi2, w_eff, r, Jc, Jp, cost
 
 
-def segment_table(target, n_targets: int):
+def pow2_width(k: int, least: int = 1) -> int:
+    """``k`` rounded up to a power of two, and at least ``least`` (a power
+    of two)."""
+    return max(least, 1 << (max(k, 1) - 1).bit_length())
+
+
+def segment_table(target, n_targets: int, least: int | None = None):
     """Fixed-order gather table for summing edge rows into targets.
 
     ``target`` (E,) int64 holds each edge's target in [0, n_targets); any
     other value drops the edge. Returns (n_targets, K) int64 edge indices,
     each row in increasing edge order and padded with E (a zero row), K the
-    largest count. One host read of K per table."""
+    largest count, or given ``least`` the largest count rounded up to a
+    power of two and at least ``least`` (``pow2_width``). One host read of
+    the largest count per table."""
     E = target.shape[0]
     dev = target.device
     keep = (target >= 0) & (target < n_targets)
@@ -99,7 +110,8 @@ def segment_table(target, n_targets: int):
     order = torch.sort(t, stable=True).indices
     t_sorted = t[order]
     counts = torch.bincount(t, minlength=n_targets + 1)
-    K = max(int(counts[:n_targets].max()) if n_targets else 0, 1)
+    K = int(counts[:n_targets].max()) if n_targets else 0
+    K = max(K, 1) if least is None else pow2_width(K, least)
     start = torch.cumsum(counts, 0) - counts
     pos = torch.arange(E, device=dev) - start[t_sorted]
     real = t_sorted < n_targets
@@ -122,22 +134,40 @@ class AssemblyPlan(NamedTuple):
     lm_cam: torch.Tensor  # (P * F, Kg) edges per (landmark, free camera)
 
 
-def assembly_plan(free_slot, cam_idx, lm_idx, valid, n_free: int, n_lm: int):
+def assembly_plan(free_slot, cam_idx, lm_idx, valid, n_free: int, n_lm: int,
+                  fixed: bool = False):
     """Tables for ``_assemble``. Edges that are not ``valid`` carry zero
-    weight and are left out; edges of fixed cameras reach no camera block."""
+    weight and are left out; edges of fixed cameras reach no camera block.
+
+    ``fixed`` pads every width to a power of two, so that the widths take
+    few values across problems and a CUDA graph keyed on them is seen
+    again, and two tables wider still: a free camera's to at least its
+    share of the edges E / n_free, a landmark's to at least the cameras C,
+    the most edges a landmark has when a keyframe observes it once (both
+    rounded up). The added columns point at the zero row: the tables list
+    the same edges in the same order, but a ``sum``'s order of additions
+    may change with the width (on the CPU as on CUDA), so a sum over them
+    agrees with the plain tables' to rounding."""
     slot_e = torch.where(valid, free_slot[cam_idx], -1)
     lm_e = torch.where(valid, lm_idx, -1)
     lm_cam = torch.where(slot_e >= 0, lm_e * n_free + slot_e, -1)
+    least = ((pow2_width(cam_idx.shape[0] // n_free), pow2_width(free_slot.shape[0]), 1)
+             if fixed else (None, None, None))
     return AssemblyPlan(
-        cam=segment_table(slot_e, n_free),
-        lm=segment_table(lm_e, n_lm),
-        lm_cam=segment_table(lm_cam, n_lm * n_free),
+        cam=segment_table(slot_e, n_free, least[0]),
+        lm=segment_table(lm_e, n_lm, least[1]),
+        lm_cam=segment_table(lm_cam, n_lm * n_free, least[2]),
     )
 
 
 def _problem_plan(prob: BAProblem, n_free: int) -> AssemblyPlan:
+    """The tables of ``prob``'s edges: of fixed widths on CUDA, where a
+    solve on one device is a captured graph keyed on them, and every other
+    CUDA solve (the sharded ones, and the eager first sight of a key) sums
+    over the same widths and so agrees with it bit for bit; of exact widths
+    on the CPU."""
     return assembly_plan(prob.free_slot, prob.cam_idx, prob.pt_idx, prob.edge_valid,
-                         n_free, prob.X_w.shape[0])
+                         n_free, prob.X_w.shape[0], fixed=prob.cam_idx.is_cuda)
 
 
 def _assemble(plan: AssemblyPlan, n_free: int, w_eff, r, Jc, Jp):
@@ -264,6 +294,20 @@ def _edge_shard(prob: BAProblem, sl: slice) -> BAProblem:
                          inv_sigma2=prob.inv_sigma2[sl], edge_valid=prob.edge_valid[sl])
 
 
+def graphs_engage(t: torch.Tensor, ranks) -> bool:
+    """Whether a solve on ``t``'s device with ``ranks`` goes through
+    ``BA_GRAPHS``: on one CUDA device only. The sharded solvers and every
+    CPU solve run eagerly, as they always have."""
+    return ranks is ONE_DEVICE and BA_GRAPHS.takes(t)
+
+
+# The local BA solves' graphs: one a problem shape, solver and camera
+# (utils/cuda_graph.py). A shape seen once (the global BA of one loop) runs
+# eagerly; from its second sight a solve is one replay in place of ~5,600
+# launches.
+BA_GRAPHS = GraphCache()
+
+
 def local_bundle_adjustment(
     cam: Camera,
     prob: BAProblem,
@@ -276,13 +320,28 @@ def local_bundle_adjustment(
     With a process group's ``ranks`` (parallel/sharded_ba.py) each rank
     assembles its contiguous edge shard, the camera blocks and the cost are
     all-reduced, the landmark blocks reduce-scattered over the point axis,
-    and every rank returns the same full arrays.
+    and every rank returns the same full arrays. On one CUDA device the
+    solve goes through ``BA_GRAPHS``; every CUDA solve sums over
+    fixed-width tables (``_problem_plan``).
 
     Returns (T_opt (C, 4, 4), X_opt (P, 3), edge_inlier (E,), chi2 (E,))."""
+    if graphs_engage(prob.T_cw, ranks):
+        return BA_GRAPHS.run(("points", cam, n_free, tuple(schedule)),
+                             lambda prob, plan: _solve(cam, prob, n_free, schedule, ONE_DEVICE,
+                                                       plan),
+                             prob, _problem_plan(prob, n_free))
+    return _solve(cam, prob, n_free, schedule, ranks)
+
+
+def _solve(cam: Camera, prob: BAProblem, n_free: int, schedule, ranks, plan=None):
+    """The solve of ``local_bundle_adjustment``. Given the tables ``plan``
+    it reads nothing back to the host, so a CUDA graph can hold it; without,
+    it builds them for this rank's edge shard."""
     esl = ranks.shard(prob.cam_idx.shape[0], "edge")
     psl = ranks.shard(prob.X_w.shape[0], "point")
     shard = _edge_shard(prob, esl)
-    plan = _problem_plan(shard, n_free)
+    if plan is None:
+        plan = _problem_plan(shard, n_free)
     pv_own = prob.point_valid[psl]
 
     def normal_eqs(active, use_huber):
